@@ -2,13 +2,13 @@
 
 The package mirrors ``cova_tpu``'s module names so that each counterpart is
 easy to find, and it imports neither JAX nor anything of ``cova_tpu``. Its
-two hot ops, the RoIPool forward and the fused stem BN+ReLU+max-pool forward,
-are CUDA kernels under ``csrc/`` built with ``nvcc`` at first use
+two hot ops, RoIPool and the fused stem BN+ReLU+max-pool, forward and
+backward, are CUDA kernels under ``csrc/`` built with ``nvcc`` at first use
 (``ops/_build.py``); each has a plain PyTorch version beside it, which is what
 runs for tensors on the CPU.
 
     from cova_tpu_torch import Config, build_model
-    from cova_tpu_torch.cli import main   # main(["predict", ...])
+    from cova_tpu_torch.cli import main   # main(["train" | "eval" | "predict", ...])
 """
 
 from .config import CLASS_NAMES, N_CLASSES, SEED, Config

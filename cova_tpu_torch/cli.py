@@ -1,17 +1,19 @@
-"""Command-line interface of the port: ``predict``.
+"""Command-line interface of the port: ``train``, ``eval`` and ``predict``.
 
-Counterpart of ``cova_tpu/cli.py`` with the same common flags and the same
-``predict`` subcommand, plus ``--device``. ``train``, ``eval``, ``export``,
+Counterpart of ``cova_tpu/cli.py`` with the same common flags, the same
+subcommands' artifacts and locations, plus ``--device``. ``export``,
 ``visualize``, ``sweep`` and ``bench`` come with later slices.
 
-    python -m cova_tpu_torch.cli predict --synthetic 50 \\
-        --torch_model "Fold-1 saved_model.pth" --out_dir preds/
+    python -m cova_tpu_torch.cli train --synthetic 50 -e 5
+    python -m cova_tpu_torch.cli eval --synthetic 50
+    python -m cova_tpu_torch.cli predict --synthetic 50 --out_dir preds/
 
 The model runs on ``cuda`` unless ``--device cpu`` is given; without a GPU
-the default refuses to run instead of carrying on on the CPU. Weights come
-from ``--torch_model`` (a reference-format ``state_dict``, as ``cova
-export`` writes it), or from the fold's ``Fold-<k> saved_model.pth`` under
-the results directory.
+the default refuses to run instead of carrying on on the CPU. ``eval`` and
+``predict`` take the fold's best checkpoint (``Fold-<k> saved_model.pt/
+best.pt`` under the results directory) unless ``--torch_model`` names a
+reference-format ``state_dict``; ``predict`` also finds the fold's exported
+``Fold-<k> saved_model.pth``.
 """
 
 from __future__ import annotations
@@ -55,6 +57,11 @@ def _add_common_flags(p: argparse.ArgumentParser):
                    help="devices (only 1 in this slice)")
     p.add_argument("--model_parallel", type=int, default=1,
                    help="tensor-parallel factor (only 1 in this slice)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the last checkpoint if present")
+    p.add_argument("--init_checkpoint", default=None, metavar="PATH.pth",
+                   help="torchvision ResNet state_dict for the backbone "
+                        "(not ported yet: refused)")
     p.add_argument("--synthetic", type=int, default=0, metavar="N_PAGES",
                    help="use N synthetic pages instead of data_dir")
     p.add_argument("--synthetic_hard", action="store_true",
@@ -122,8 +129,22 @@ def _set_numerics(cfg: Config) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def _refuse_unported(cfg: Config, args, command: str) -> None:
+    if cfg.decode_cache:
+        raise SystemExit("--decode_cache is not ported to cova_tpu_torch yet")
+    if cfg.num_devices != 1 or cfg.model_parallel != 1:
+        raise SystemExit(f"cova_tpu_torch {command} runs on one device "
+                         "(multi-GPU is not ported yet)")
+    if args.init_checkpoint:
+        raise SystemExit("--init_checkpoint (pretrained backbone) is not "
+                         "ported to cova_tpu_torch yet")
+
+
 def _load_datasets(cfg: Config, args):
-    """Returns (train_ds, val_ds, test_ds)."""
+    """Returns (train_ds, val_ds, test_ds, webpage_info, test_domains);
+    the last two are None where the fold has no domain files."""
+    import numpy as np
+
     from .data.dataset import WebDataset, load_fold_ids
     from .data.synthetic import InMemoryWebDataset
 
@@ -142,35 +163,169 @@ def _load_datasets(cfg: Config, args):
             n_additional_feat=4 if cfg.use_additional_feat else 0,
             hard=args.synthetic_hard,
         )
-        return tuple(base.subset(s) for s in splits)
+        # Ten round-robin domains, as the JAX package synthesizes them, so
+        # the domainwise and macro reports have rows.
+        domains = np.array([f"synth{i % 10:02d}.com" for i in range(n)])
+        webpage_info = np.stack([np.array(base.ids), domains], axis=1)
+        test_domains = np.unique(domains[np.array(splits[2], np.int32)])
+        return (*[base.subset(s) for s in splits], webpage_info,
+                test_domains)
 
     from .data import native_loader
 
-    train_ids, val_ids, test_ids, _, _ = load_fold_ids(cfg.fold_dir)
+    train_ids, val_ids, test_ids, webpage_info, test_domains = (
+        load_fold_ids(cfg.fold_dir)
+    )
     native_loader.ensure_built()
-    return tuple(
+    return (*(
         WebDataset(cfg.data_dir, ids, cfg.use_additional_feat,
                    img_size=cfg.img_height)
         for ids in (train_ids, val_ids, test_ids)
-    )
+    ), webpage_info, test_domains)
+
+
+def _build(cfg: Config, device, train_ds, val_ds, test_ds):
+    """The model (initialised from ``cfg.seed``) on ``device``, its train
+    state and the three pipelines."""
+    from .data.pipeline import make_pipelines
+    from .models.cova import build_model
+    from .train.steps import create_train_state
+    from .utils.params import count_parameters
+
+    if train_ds.n_additional_feat:
+        cfg = cfg.replace(n_additional_feat=train_ds.n_additional_feat)
+    pipelines = make_pipelines(cfg, train_ds, val_ds, test_ds)
+    model = build_model(cfg, device=device)
+    state = create_train_state(model, cfg)
+    # Trainable-parameter line at init (reference models.py:92).
+    print("Model Parameters:", count_parameters(model))
+    return (cfg, state, *pipelines)
 
 
 def load_model(cfg: Config, device, torch_model: Optional[str] = None):
-    """The eval-mode model of ``cfg`` on ``device`` with the weights of a
-    reference-format state_dict (strict load)."""
+    """The eval-mode model of ``cfg`` on ``device``: the weights of
+    ``torch_model`` (a reference-format state_dict, strict load), else the
+    fold's best checkpoint, else the fold's exported ``.pth``."""
     from .models.cova import build_model
+    from .utils.checkpoint import CheckpointManager, load_checkpoint
     from .utils.weights import load_state_dict_file
 
-    path = torch_model or cfg.torch_model_path()
-    if not os.path.isfile(path):
-        raise SystemExit(
-            f"no weights at {path!r}: pass --torch_model PATH.pth (a "
-            "reference-format state_dict, e.g. from `cova export`)"
-        )
+    best = CheckpointManager(cfg.ckpt_dir()).path("best")
+    if torch_model:
+        path, sd = torch_model, None
+    elif os.path.isfile(best):
+        path, sd = best, load_checkpoint(best)["model"]
+    else:
+        path, sd = cfg.torch_model_path(), None
+    if sd is None:
+        if not os.path.isfile(path):
+            raise SystemExit(
+                f"no weights at {path!r}: train the fold first (`train`) or "
+                "pass --torch_model PATH.pth (a reference-format "
+                "state_dict, e.g. from `cova export`)"
+            )
+        sd = load_state_dict_file(path)
     model = build_model(cfg, device="cpu")
-    model.load_state_dict(load_state_dict_file(path), strict=True)
-    print(f"Serving reference-format checkpoint: {path}")
+    model.load_state_dict(sd, strict=True)
+    print(f"Serving checkpoint: {path}")
     return model.to(device)
+
+
+def _log_header(cfg: Config, log_file: str) -> None:
+    """The hyperparameter header of the fold's log (main.py:110-119)."""
+    from .utils.logging import print_and_log
+
+    print_and_log("Learning Rate: %.0e" % cfg.learning_rate, log_file, "w")
+    print_and_log("Batch Size: %d" % cfg.batch_size, log_file)
+    print_and_log("Context Size: %d" % cfg.context_size, log_file)
+    print_and_log("Hidden Dim: %d" % cfg.gat_hidden_dim, log_file)
+    print_and_log(
+        "RoI Pool Output Size: (%d, %d)" % (cfg.roi, cfg.roi), log_file
+    )
+    print_and_log("BBox Hidden Dim: %d" % cfg.bbox_hidden_dim, log_file)
+    print_and_log(
+        "Use Additional Features: %s" % cfg.use_additional_feat, log_file
+    )
+    print_and_log("Weight Decay: %.0e" % cfg.weight_decay, log_file)
+    print_and_log("Dropout Probability: %.2f" % cfg.drop_prob, log_file)
+    print_and_log(
+        "Sampling Fraction: %.2f\n" % cfg.sampling_fraction, log_file
+    )
+
+
+def cmd_train(args) -> int:
+    """Train one fold: log, checkpoints, metrics, then the test reports and
+    the fold's row of ``fold_wise_acc.csv``."""
+    from .train.reporting import append_fold_row, evaluate
+    from .train.trainer import fit
+    from .utils.checkpoint import CheckpointManager
+    from .utils.logging import MetricsLogger
+
+    cfg = _cfg_from_args(args)
+    device = resolve_device(args.device)
+    _refuse_unported(cfg, args, "train")
+    if args.synthetic_hard:
+        raise SystemExit("train --synthetic_hard (with its oracle row) is "
+                         "not ported to cova_tpu_torch yet")
+    _set_numerics(cfg)
+    train_ds, val_ds, test_ds, webpage_info, test_domains = _load_datasets(
+        cfg, args
+    )
+    cfg, state, train_p, val_p, test_p = _build(
+        cfg, device, train_ds, val_ds, test_ds
+    )
+
+    os.makedirs(cfg.results_dir, exist_ok=True)
+    log_file = cfg.log_file()
+    print(f'\n{"*"*20} Training on Fold-{cfg.cv_fold} {"*"*20}')
+    print(f'logs will be saved in "{log_file}"')
+    _log_header(cfg, log_file)
+
+    ckpt = CheckpointManager(cfg.ckpt_dir())
+    metrics = MetricsLogger(os.path.join(cfg.results_dir, "metrics.jsonl"))
+    state, val_acc = fit(
+        state, cfg, train_p, val_p, ckpt, log_file, metrics,
+        class_names=CLASS_NAMES, resume=args.resume,
+    )
+
+    prefix = os.path.join(cfg.results_dir, f"Fold-{cfg.cv_fold} ")
+    class_acc, macro_acc = evaluate(
+        state.model, test_p, cfg.n_classes, CLASS_NAMES, log_file,
+        prefix + "test_acc_imgwise.csv", webpage_info, test_domains,
+        prefix + "test_acc_domainwise.csv", box_buckets=cfg.box_buckets,
+    )
+    append_fold_row(
+        os.path.join(cfg.results_dir, "fold_wise_acc.csv"),
+        cfg.cv_fold, val_acc, class_acc, macro_acc,
+    )
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """Evaluate the fold's best checkpoint (or ``--torch_model``) on its
+    test split; the reports go to the working directory, as the
+    reference's ``evaluate.py`` writes them."""
+    from .data.pipeline import make_eval_pipeline
+    from .train.reporting import evaluate
+
+    cfg = _cfg_from_args(args)
+    device = resolve_device(args.device)
+    _refuse_unported(cfg, args, "eval")
+    _set_numerics(cfg)
+    _, _, test_ds, webpage_info, test_domains = _load_datasets(cfg, args)
+    if test_ds.n_additional_feat:
+        cfg = cfg.replace(n_additional_feat=test_ds.n_additional_feat)
+    model = load_model(cfg, device, args.torch_model)
+    class_acc, macro_acc = evaluate(
+        model, make_eval_pipeline(cfg, test_ds), cfg.n_classes, CLASS_NAMES,
+        f"Fold-{cfg.cv_fold} test_acc_classwise.txt",
+        f"Fold-{cfg.cv_fold} test_acc_imgwise.csv",
+        webpage_info, test_domains,
+        f"Fold-{cfg.cv_fold} test_acc_domainwise.csv",
+        k=args.top_k, box_buckets=cfg.box_buckets,
+    )
+    print("Class acc:", class_acc[1:], "Macro acc:", macro_acc[1:])
+    return 0
 
 
 def cmd_predict(args) -> int:
@@ -183,10 +338,7 @@ def cmd_predict(args) -> int:
 
     cfg = _cfg_from_args(args)
     device = resolve_device(args.device)
-    if cfg.decode_cache:
-        raise SystemExit("--decode_cache is not ported to cova_tpu_torch yet")
-    if cfg.num_devices != 1 or cfg.model_parallel != 1:
-        raise SystemExit("cova_tpu_torch predict runs on one device")
+    _refuse_unported(cfg, args, "predict")
     if args.page_ids and args.synthetic:
         raise SystemExit("--page_ids requires on-disk data, not "
                          "--synthetic (synthetic predicts its test split)")
@@ -228,13 +380,20 @@ def main(argv: Optional[list] = None) -> int:
         description="CoVA in PyTorch: context-aware webpage object detection",
     )
     sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("predict")
-    _add_common_flags(p)
-    p.set_defaults(fn=cmd_predict)
-    p.add_argument(
-        "--torch_model", default=None, metavar="PATH.pth",
-        help="reference-format state_dict to serve (default: "
-             "'<results_dir>/Fold-<k> saved_model.pth')")
+    for name, fn in (("train", cmd_train), ("eval", cmd_eval),
+                     ("predict", cmd_predict)):
+        p = sub.add_parser(name)
+        _add_common_flags(p)
+        p.set_defaults(fn=fn)
+    for name in ("eval", "predict"):
+        sub.choices[name].add_argument(
+            "--torch_model", default=None, metavar="PATH.pth",
+            help="reference-format state_dict to serve (default: the "
+                 "fold's best checkpoint)")
+    sub.choices["eval"].add_argument(
+        "--top_k", type=int, default=1,
+        help="retrieval depth k (published numbers use k=1)")
+    p = sub.choices["predict"]
     p.add_argument(
         "--page_ids", type=str, nargs="+", default=None,
         help="predict these pages from --data_dir instead of the fold's "

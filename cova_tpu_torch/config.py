@@ -32,7 +32,8 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """All knobs for data, model and serving; mirrors ``cova_tpu.Config``."""
+    """All knobs for data, model, training and serving; mirrors
+    ``cova_tpu.Config``."""
 
     # ---- paths ----
     data_dir: str = "../data"
@@ -160,6 +161,16 @@ class Config:
         if self.cv_fold == -1:
             return self.split_dir
         return os.path.join(self.split_dir, "Fold-%d" % self.cv_fold)
+
+    def log_file(self) -> str:
+        return os.path.join(self.results_dir, "Fold-%s logs.txt" % self.cv_fold)
+
+    def ckpt_dir(self) -> str:
+        """The fold's checkpoints, ``best.pt`` and ``last.pt`` (the JAX
+        package keeps its orbax ones in ``Fold-<k> saved_model.orbax``)."""
+        return os.path.join(
+            self.results_dir, "Fold-%s saved_model.pt" % self.cv_fold
+        )
 
     def torch_model_path(self) -> str:
         """Where ``cova export`` writes the fold's reference-format

@@ -133,6 +133,24 @@ class DataPipeline:
                     t.join(timeout=0.1)
 
 
+def make_pipelines(cfg, train_ds, val_ds, test_ds):
+    """The three split pipelines: train shuffles and subsamples BG in
+    batches of ``cfg.batch_size``; val and test are
+    ``make_eval_pipeline``'s."""
+    train = DataPipeline(
+        train_ds,
+        batch_size=cfg.batch_size,
+        pad_boxes=cfg.pad_boxes,
+        context_size=cfg.context_size,
+        shuffle=True,
+        sampling_fraction=cfg.sampling_fraction,
+        seed=cfg.seed,
+        num_threads=cfg.num_workers,
+    )
+    return (train, make_eval_pipeline(cfg, val_ds),
+            make_eval_pipeline(cfg, test_ds))
+
+
 def make_eval_pipeline(cfg, dataset) -> DataPipeline:
     """The val/test-style pipeline: ``cfg.eval_batch_size`` pages, no
     shuffle, no BG sampling."""

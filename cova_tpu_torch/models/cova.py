@@ -11,6 +11,14 @@ Counterpart of ``cova_tpu/models/cova.py`` over padded batches:
   * one GAT layer over the preorder K-neighbourhood;
   * decoder Dropout -> Linear -> BN -> ReLU -> Dropout -> Linear.
 
+In training mode the dropout masks come from a ``torch.Generator`` passed
+to ``forward`` (the trainer keys one by (seed, epoch)), never from torch's
+global RNG, so a resumed run draws the masks the uninterrupted run would
+have. ``build_model`` initialises the weights from a generator seeded with
+``cfg.seed``, with the JAX package's distributions: U(+-1/sqrt(fan_in)) for
+Linear weights and biases (``cova_tpu/models/layers.py:24-29``) and
+``he_normal`` for convs (``cova_tpu/models/resnet.py:31``).
+
 Module and parameter names are the reference's torch namespace
 (``convnet.{0,1,4}``, ``bbox_feat_encoder.{0,1}``, ``bn_additional_feat``,
 ``gat.{W_i,W_j,attention_layer}``, ``decoder.{1,2,5}``), so a reference
@@ -34,7 +42,7 @@ from torch import nn
 from ..ops.roi_pool import roi_pool
 from .gat import GraphAttention
 from .layers import MaskedBatchNorm
-from .resnet import ResNet18Stem
+from .resnet import ResNet18Stem, he_normal_
 
 
 class CoVAOutput(NamedTuple):
@@ -45,6 +53,19 @@ class CoVAOutput(NamedTuple):
 def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     bias = None if lin.bias is None else lin.bias.to(x.dtype)
     return F.linear(x, lin.weight.to(x.dtype), bias)
+
+
+def _dropout(x: torch.Tensor, p: float, generator) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from ``generator``: keep each
+    element with probability 1 - p and scale it by 1 / (1 - p), as
+    ``flax.linen.Dropout``."""
+    if p <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("training with dropout needs an explicit "
+                         "torch.Generator (forward(..., generator=...))")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 class CoVA(nn.Module):
@@ -137,6 +158,7 @@ class CoVA(nn.Module):
         box_mask: torch.Tensor,  # [B, P] bool
         context_indices: torch.Tensor,  # [B, P, K] int32, -1 = pad
         additional_feats: Optional[torch.Tensor] = None,  # [B, P, F]
+        generator: Optional[torch.Generator] = None,  # dropout, training
     ) -> CoVAOutput:
         dt = self.compute_dtype
         parts = [
@@ -156,10 +178,19 @@ class CoVA(nn.Module):
         else:
             combined = own
 
+        # Dropout hits all rows as in the reference; padded rows are masked
+        # downstream. d[0] and d[4] are the nn.Dropout slots of the
+        # reference's Sequential: they hold p, the masks come from here.
         d = self.decoder
-        y = d[0](combined)
+
+        def drop(t, slot):
+            if not self.training:
+                return t
+            return _dropout(t, slot.p, generator)
+
+        y = drop(combined, d[0])
         y = d[2](_linear(d[1], y), box_mask)
-        y = d[4](F.relu(y))
+        y = drop(F.relu(y), d[4])
         logits = _linear(d[5], y)
         return CoVAOutput(
             logits=logits.float(),
@@ -167,18 +198,39 @@ class CoVA(nn.Module):
         )
 
 
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Re-initialise every conv and Linear from ``generator`` with the JAX
+    package's distributions: convs ``he_normal`` (fan_in, truncated
+    normal), Linear weights and biases U(+-1/sqrt(fan_in)). BatchNorm keeps
+    its constant init (weight 1, bias 0), as there."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Conv2d):
+            he_normal_(mod.weight, generator)
+        elif isinstance(mod, nn.Linear):
+            bound = 1.0 / mod.in_features**0.5
+            for prm in (mod.weight, mod.bias):
+                if prm is not None:
+                    prm.uniform_(-bound, bound, generator=generator)
+
+
 def build_model(cfg, device="cuda") -> CoVA:
-    """The model of a ``Config``, in eval mode, on ``device``."""
-    return CoVA(
-        n_classes=cfg.n_classes,
-        use_context=cfg.use_context,
-        hidden_dim=cfg.gat_hidden_dim,
-        bbox_hidden_dim=cfg.bbox_hidden_dim,
-        n_additional_feat=(
-            cfg.n_additional_feat if cfg.use_additional_feat else 0
-        ),
-        drop_prob=cfg.drop_prob,
-        roi_output_size=cfg.roi,
-        backbone=cfg.backbone,
-        compute_dtype=getattr(torch, cfg.compute_dtype),
-    ).to(device).eval()
+    """The model of a ``Config``, in eval mode, on ``device``, with weights
+    drawn on the CPU from a generator seeded with ``cfg.seed`` (the same
+    weights on every device; torch's global RNG is left as it was)."""
+    with torch.random.fork_rng(devices=[]):  # the modules' default init
+        model = CoVA(
+            n_classes=cfg.n_classes,
+            use_context=cfg.use_context,
+            hidden_dim=cfg.gat_hidden_dim,
+            bbox_hidden_dim=cfg.bbox_hidden_dim,
+            n_additional_feat=(
+                cfg.n_additional_feat if cfg.use_additional_feat else 0
+            ),
+            drop_prob=cfg.drop_prob,
+            roi_output_size=cfg.roi,
+            backbone=cfg.backbone,
+            compute_dtype=getattr(torch, cfg.compute_dtype),
+        )
+    init_weights(model, torch.Generator().manual_seed(cfg.seed))
+    return model.to(device).eval()

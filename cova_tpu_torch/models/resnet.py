@@ -11,7 +11,9 @@ For an s2d(4) input (and RGB whose sides divide by 4) the stem runs the
 conv in s2d form (``ops.conv_stem.stem_conv_s2d``), folds the four s2d(2)
 phase groups into the BN statistics, and applies normalize + ReLU + pool in
 one kernel (``ops.bn_pool.bn_relu_pool_s2d``). Other RGB sizes take the
-plain ops. Other backbones wait for a later slice.
+plain ops. In training the stem's BN coefficients carry gradient (they
+depend on ys through the batch statistics) and ``bn_relu_pool_s2d`` runs its
+backward kernel. Other backbones wait for a later slice.
 """
 
 from __future__ import annotations
@@ -23,6 +25,20 @@ from torch import nn
 from ..ops.bn_pool import bn_relu_pool_s2d
 from ..ops.conv_stem import nhwc_conv2d, stem_conv_s2d
 from .layers import MaskedBatchNorm
+
+# flax's truncated_normal draws within +-2 standard deviations and divides
+# the target std by the std of that truncated unit normal.
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def he_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """``flax.linen.initializers.he_normal()`` for an OIHW conv weight:
+    variance 2 / fan_in from a normal truncated at +-2 of its std."""
+    fan_in = weight[0].numel()
+    std = (2.0 / fan_in) ** 0.5 / _TRUNC_STD
+    torch.nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                generator=generator)
 
 
 class BasicBlock(nn.Module):

@@ -1,10 +1,9 @@
-"""RoI max-pooling over an NHWC feature map: the CUDA kernel
-``csrc/roi_pool.cu`` and its plain PyTorch version.
+"""RoI max-pooling over an NHWC feature map, forward and backward: the CUDA
+kernels of ``csrc/roi_pool.cu`` and their plain PyTorch versions.
 
 Counterpart of ``cova_tpu/ops/roi_pool.py`` (the bin rules) and
-``cova_tpu/ops/roi_pool_pallas.py`` (the kernel, forward only here; the
-backward belongs to training and is not ported yet). Semantics are those of
-``torchvision.ops.roi_pool``:
+``cova_tpu/ops/roi_pool_pallas.py`` (the kernels and their ``custom_vjp``).
+Semantics are those of ``torchvision.ops.roi_pool``:
 
   * box coords are scaled by ``spatial_scale`` and quantized with
     round-half-away-from-zero (C ``roundf``, negative coords included);
@@ -14,9 +13,19 @@ backward belongs to training and is not ported yet). Semantics are those of
     the roi start and clipped to the map, in exact integer arithmetic;
   * empty bins give 0, and so do masked (padding) boxes.
 
-On a CUDA tensor ``roi_pool`` launches the kernel (or raises); on a CPU
-tensor it runs the plain version. The two agree bit for bit: a max selects
-one of its inputs.
+The backward adds each bin's cotangent to every pixel of the bin whose value
+equals the pooled max: every tied maximum gets the full cotangent, as the
+Pallas kernel does (autodiff of a max would split it). Boxes get no
+gradient.
+
+``roi_pool`` is differentiable in ``fm``: when grad is enabled and ``fm``
+requires it, it runs as an autograd function whose backward is
+``roi_pool_backward``. On a CUDA tensor each wrapper launches its kernel (or
+raises); on a CPU tensor it runs the plain version. Kernel and plain version
+agree bit for bit, forward (a max selects one of its inputs) and backward
+(both add a pixel's contributions in f32 in the same order, box by box and
+bin by bin). ``roi_pool_plain`` is the same autograd function over the plain
+versions, on any device.
 """
 
 from __future__ import annotations
@@ -30,6 +39,10 @@ from . import _build
 
 _FNS = {torch.float32: "roi_pool_fwd_f32",
         torch.bfloat16: "roi_pool_fwd_bf16"}
+_BWD_FNS = {torch.float32: "roi_pool_bwd_f32",
+            torch.bfloat16: "roi_pool_bwd_bf16"}
+# The backward kernel keeps a tile's list of boxes in shared memory.
+_BWD_MAX_BOXES = 8192
 
 
 def _quantize(v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -102,6 +115,60 @@ def roi_pool_reference(
     return out
 
 
+def roi_pool_backward_reference(
+    fm: torch.Tensor,
+    boxes: torch.Tensor,
+    box_mask: Optional[torch.Tensor],
+    pooled: torch.Tensor,
+    g: torch.Tensor,
+    spatial_scale: float,
+    out_h: int = 3,
+    out_w: int = 3,
+) -> torch.Tensor:
+    """Plain version of the backward: one slice-compare-add per bin, box by
+    box and bin by bin, into an f32 map.
+
+    fm: [B, H, W, C]; pooled: the forward's [B, P, out_h, out_w, C]; g: its
+    cotangent (cast to fm.dtype, as the JAX VJP does). Returns dfm in
+    fm.dtype: ``dfm[b, y, x, c] = sum of g[b, p, i, j, c]`` over the bins
+    holding (y, x) where ``fm[b, y, x, c] == pooled[b, p, i, j, c]``.
+    """
+    h, w = fm.shape[1:3]
+    bounds = roi_bounds(boxes, box_mask, spatial_scale, out_h, out_w, h, w)
+    g = g.to(fm.dtype).float()
+    pooled = pooled.float()
+    dfm = torch.zeros(fm.shape, dtype=torch.float32, device=fm.device)
+    for b, page in enumerate(bounds.tolist()):
+        for p, bd in enumerate(page):
+            ylo, yhi = bd[:out_h], bd[out_h : 2 * out_h]
+            xlo, xhi = bd[2 * out_h : 2 * out_h + out_w], bd[2 * out_h + out_w :]
+            for i in range(out_h):
+                for j in range(out_w):
+                    if yhi[i] <= ylo[i] or xhi[j] <= xlo[j]:
+                        continue
+                    win = (b, slice(ylo[i], yhi[i]), slice(xlo[j], xhi[j]))
+                    hit = fm[win].float() == pooled[b, p, i, j]
+                    dfm[win] += torch.where(hit, g[b, p, i, j], 0.0)
+    return dfm.to(fm.dtype)
+
+
+def _check(fm: torch.Tensor, boxes: torch.Tensor, what: str, fns,
+           out_h: int, out_w: int) -> None:
+    if fm.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {fm.device}")
+    b, _, _, c = fm.shape
+    if fm.dtype not in fns:
+        raise TypeError(f"{what}: unsupported dtype {fm.dtype}")
+    if c % 2 or out_h * out_w > 32:
+        raise ValueError(f"{what}: need an even channel count and at most "
+                         f"32 bins, got C={c}, {out_h}x{out_w}")
+    if not fm.is_contiguous() or fm.data_ptr() % 8:
+        raise ValueError(f"{what}: fm must be contiguous and aligned")
+    if boxes.device != fm.device or boxes.dim() != 3 or boxes.shape[0] != b \
+            or boxes.shape[2] != 4:
+        raise ValueError(f"{what}: boxes must be [{b}, P, 4] on {fm.device}")
+
+
 def _bind(lib) -> None:
     for name in _FNS.values():
         fn = getattr(lib, name)
@@ -109,36 +176,24 @@ def _bind(lib) -> None:
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
+    for name in _BWD_FNS.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
 
 
-def roi_pool(
-    fm: torch.Tensor,
-    boxes: torch.Tensor,
-    box_mask: Optional[torch.Tensor],
-    spatial_scale: float,
-    out_h: int = 3,
-    out_w: int = 3,
-) -> torch.Tensor:
-    """Batched RoIPool. fm: [B, H, W, C] bf16 or f32; boxes: [B, P, 4]
-    x1y1x2y2 (image coords); box_mask: [B, P] bool or None.
-    Returns [B, P, out_h, out_w, C] in fm.dtype."""
+def _forward(fm, boxes, box_mask, spatial_scale, out_h=3, out_w=3):
+    """The forward without autograd: the plain version on the CPU, the
+    kernel on a CUDA tensor."""
     if fm.device.type == "cpu":
         return roi_pool_reference(
             fm, boxes, box_mask, spatial_scale, out_h, out_w
         )
-    if fm.device.type != "cuda":
-        raise ValueError(f"roi_pool: unsupported device {fm.device}")
+    _check(fm, boxes, "roi_pool", _FNS, out_h, out_w)
     b, h, w, c = fm.shape
     p = boxes.shape[1]
-    if fm.dtype not in _FNS:
-        raise TypeError(f"roi_pool: unsupported dtype {fm.dtype}")
-    if c % 2 or out_h * out_w > 32:
-        raise ValueError(f"roi_pool: need an even channel count and at "
-                         f"most 32 bins, got C={c}, {out_h}x{out_w}")
-    if not fm.is_contiguous() or fm.data_ptr() % 8:
-        raise ValueError("roi_pool: fm must be contiguous and aligned")
-    if boxes.device != fm.device or boxes.shape != (b, p, 4):
-        raise ValueError(f"roi_pool: boxes must be [{b}, P, 4] on {fm.device}")
     bounds = roi_bounds(boxes, box_mask, spatial_scale, out_h, out_w, h, w)
     out = torch.empty((b, p, out_h, out_w, c), dtype=fm.dtype,
                       device=fm.device)
@@ -153,4 +208,104 @@ def roi_pool(
     return out
 
 
+def roi_pool_backward(
+    fm: torch.Tensor,
+    boxes: torch.Tensor,
+    box_mask: Optional[torch.Tensor],
+    pooled: torch.Tensor,
+    g: torch.Tensor,
+    spatial_scale: float,
+    out_h: int = 3,
+    out_w: int = 3,
+) -> torch.Tensor:
+    """Backward of ``roi_pool``: dfm [B, H, W, C] in fm.dtype for the
+    cotangent ``g`` of ``pooled``. The kernel on a CUDA tensor, the plain
+    version on the CPU."""
+    if fm.device.type == "cpu":
+        return roi_pool_backward_reference(
+            fm, boxes, box_mask, pooled, g, spatial_scale, out_h, out_w
+        )
+    _check(fm, boxes, "roi_pool_backward", _BWD_FNS, out_h, out_w)
+    b, h, w, c = fm.shape
+    p = boxes.shape[1]
+    if pooled.shape != (b, p, out_h, out_w, c) or g.shape != pooled.shape:
+        raise ValueError("roi_pool_backward: pooled and g must be "
+                         f"[{b}, {p}, {out_h}, {out_w}, {c}]")
+    if p > _BWD_MAX_BOXES:
+        raise ValueError(f"roi_pool_backward: at most {_BWD_MAX_BOXES} "
+                         f"boxes per image, got {p}")
+    bounds = roi_bounds(boxes, box_mask, spatial_scale, out_h, out_w, h, w)
+    pooled = pooled.to(fm.dtype).contiguous()
+    g = g.to(fm.dtype).contiguous()
+    dfm = torch.empty_like(fm)
+    lib = _build.library("roi_pool", _bind)
+    with torch.cuda.device(fm.device):
+        rc = getattr(lib, _BWD_FNS[fm.dtype])(
+            fm.data_ptr(), bounds.data_ptr(), pooled.data_ptr(),
+            g.data_ptr(), dfm.data_ptr(), b, p, h, w, c, out_h, out_w,
+            _build.stream_ptr(fm),
+        )
+    _build.check(rc, "roi_pool_backward")
+    roi_pool_backward.launches += 1
+    return dfm
+
+
+class _RoIPool(torch.autograd.Function):
+    """Autograd over a (forward, backward) pair. Saves fm, the boxes, the
+    mask and the pooled output, as the JAX VJP does; the boxes get no
+    gradient (``roi_pool_pallas.py``'s VJP returns zeros for them)."""
+
+    @staticmethod
+    def forward(ctx, fm, boxes, box_mask, spatial_scale, out_h, out_w, fwd,
+                bwd):
+        pooled = fwd(fm, boxes, box_mask, spatial_scale, out_h, out_w)
+        ctx.args = (spatial_scale, out_h, out_w)
+        ctx.bwd = bwd
+        ctx.save_for_backward(fm, boxes, box_mask, pooled)
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g):
+        fm, boxes, box_mask, pooled = ctx.saved_tensors
+        dfm = ctx.bwd(fm, boxes, box_mask, pooled, g.contiguous(), *ctx.args)
+        return dfm, None, None, None, None, None, None, None
+
+
+def roi_pool(
+    fm: torch.Tensor,
+    boxes: torch.Tensor,
+    box_mask: Optional[torch.Tensor],
+    spatial_scale: float,
+    out_h: int = 3,
+    out_w: int = 3,
+) -> torch.Tensor:
+    """Batched RoIPool. fm: [B, H, W, C] bf16 or f32; boxes: [B, P, 4]
+    x1y1x2y2 (image coords); box_mask: [B, P] bool or None.
+    Returns [B, P, out_h, out_w, C] in fm.dtype. Differentiable in fm (the
+    backward kernel on CUDA)."""
+    if torch.is_grad_enabled() and fm.requires_grad:
+        return _RoIPool.apply(fm, boxes, box_mask, spatial_scale, out_h,
+                              out_w, _forward, roi_pool_backward)
+    return _forward(fm, boxes, box_mask, spatial_scale, out_h, out_w)
+
+
+def roi_pool_plain(
+    fm: torch.Tensor,
+    boxes: torch.Tensor,
+    box_mask: Optional[torch.Tensor],
+    spatial_scale: float,
+    out_h: int = 3,
+    out_w: int = 3,
+) -> torch.Tensor:
+    """``roi_pool`` through the plain forward and backward on any device:
+    the same function and gradient, with no kernel launched."""
+    if torch.is_grad_enabled() and fm.requires_grad:
+        return _RoIPool.apply(fm, boxes, box_mask, spatial_scale, out_h,
+                              out_w, roi_pool_reference,
+                              roi_pool_backward_reference)
+    return roi_pool_reference(fm, boxes, box_mask, spatial_scale, out_h,
+                              out_w)
+
+
 roi_pool.launches = 0
+roi_pool_backward.launches = 0

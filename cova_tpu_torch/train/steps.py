@@ -1,47 +1,134 @@
-"""Inference step and the retrieval metric.
+"""Train, eval and inference steps: loss, optimizer, metrics.
 
-Counterpart of ``forward_step`` and ``retrieval_metric`` in
-``cova_tpu/train/steps.py``. The train step comes with the training slice.
+Counterpart of ``cova_tpu/train/steps.py``:
+
+  * loss = cross-entropy summed over the valid boxes (f32);
+  * optimizer = ``torch.optim.Adam(lr, weight_decay=wd)``: the decay is
+    added to the gradient before the moments, which is the JAX package's
+    optax chain (``add_decayed_weights``, ``scale_by_adam``, ``scale(-lr)``);
+  * train accuracy counts argmax-correct over all valid boxes, BG included;
+  * the eval metric is the reference's retrieval top-k.
+
+The train step returns its metrics as device tensors, so the trainer
+fetches them once per epoch. ``forward_step`` and ``eval_step`` run under
+``torch.inference_mode()``; the train step does not.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..data.batching import Batch
 
 
+def _to_device(a, device) -> torch.Tensor:
+    """A host array on ``device``: pinned and non-blocking to a GPU."""
+    t = torch.from_numpy(a)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def batch_to_device(batch: Batch, device) -> dict:
-    """The model's keyword inputs for a host ``Batch``, on ``device``
-    (pinned, non-blocking copies when the device is a GPU)."""
-    pin = torch.device(device).type == "cuda"
-
-    def put(a):
-        t = torch.from_numpy(a)
-        if pin:
-            t = t.pin_memory()
-        return t.to(device, non_blocking=pin)
-
+    """The model's keyword inputs for a host ``Batch``, on ``device``."""
     return dict(
-        images_u8=put(batch.images),
-        boxes=put(batch.boxes),
-        box_mask=put(batch.box_mask),
-        context_indices=put(batch.context_indices),
+        images_u8=_to_device(batch.images, device),
+        boxes=_to_device(batch.boxes, device),
+        box_mask=_to_device(batch.box_mask, device),
+        context_indices=_to_device(batch.context_indices, device),
         additional_feats=(
-            put(batch.additional_feats)
+            _to_device(batch.additional_feats, device)
             if batch.additional_feats.shape[-1] > 0 else None
         ),
     )
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (parameters and BN statistics), its optimizer and the
+    number of steps taken."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+
+def make_optimizer(params, learning_rate: float,
+                   weight_decay: float) -> torch.optim.Adam:
+    """torch ``Adam(lr, weight_decay=wd)``: grad += wd * param, then the
+    Adam moments (0.9, 0.999, eps 1e-8), then the constant learning rate."""
+    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=weight_decay)
+
+
+def create_train_state(model, cfg) -> TrainState:
+    return TrainState(
+        model=model,
+        optimizer=make_optimizer(model.parameters(), cfg.learning_rate,
+                                 cfg.weight_decay),
+    )
+
+
+def masked_ce_sum(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy over valid boxes (f32)."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+    return (nll * mask.float()).sum()
+
+
+def train_step(state: TrainState, batch: Batch,
+               generator: Optional[torch.Generator] = None) -> dict:
+    """One forward/backward/update in training mode (batch statistics, BN
+    running-stat updates, dropout from ``generator``). Returns
+    ``loss_sum``, ``n_correct`` and ``n_boxes`` as 0-d device tensors."""
+    model = state.model
+    model.train()
+    inputs = batch_to_device(batch, state.device)
+    labels = _to_device(batch.labels, state.device)
+    mask = inputs["box_mask"]
+    out = model(**inputs, generator=generator)
+    loss = masked_ce_sum(out.logits, labels, mask)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+    with torch.no_grad():
+        maskf = mask.float()
+        preds = out.logits.argmax(-1)
+        return {
+            "loss_sum": loss.detach(),
+            "n_correct": ((preds == labels).float() * maskf).sum(),
+            "n_boxes": maskf.sum(),
+        }
+
+
+@torch.inference_mode()
+def eval_step(model, batch: Batch, n_classes: int = 4, k: int = 1) -> dict:
+    """Inference + retrieval metric; BN on running stats, dropout off."""
+    model.eval()
+    device = next(model.parameters()).device
+    inputs = batch_to_device(batch, device)
+    out = model(**inputs)
+    labels = _to_device(batch.labels, device)
+    correct, present = retrieval_metric(out.logits, labels,
+                                        inputs["box_mask"], n_classes, k=k)
+    return {"correct": correct, "present": present, "logits": out.logits}
 
 
 @torch.inference_mode()
 def forward_step(model, batch: Batch):
     """Plain inference returning logits + attention weights (BN on running
     stats, dropout off)."""
-    device = next(model.parameters()).device
-    return model(**batch_to_device(batch, device))
+    return model(**batch_to_device(batch, next(model.parameters()).device))
 
 
 def retrieval_metric(

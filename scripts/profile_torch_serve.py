@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Where the time of one flagship serving batch of the PyTorch port goes.
+"""Where the time of one flagship serving batch, or one train step, of the
+PyTorch port goes.
 
-    python3 scripts/profile_torch_serve.py      # on a machine with a GPU
+    python3 scripts/profile_torch_serve.py          # serving, on a GPU
+    python3 scripts/profile_torch_serve.py --train  # one train step
 
 Builds the flagship model (resnet18_stem, 1280^2, P = 232, -cs 12, -hd 384,
-bf16) with the seeded random weights of ``chip_smoke.py``, takes one batch
-of B = 10 synthetic pages, and traces ``forward_step`` (host copy included)
-over 10 batches with ``torch.profiler``. Prints one JSON line: the window's
-wall time per batch, the device's busy time (union of kernel and copy
-intervals), its idle share, device time by category, the top kernels, and
-the top aten ops with their input shapes.
+bf16). Serving: the seeded random weights of ``chip_smoke.py`` and one batch
+of B = 10 synthetic pages, tracing ``forward_step`` (host copy included) over
+10 batches. Train: the model as ``build_model`` initialises it and
+``chip_smoke.py``'s fixed train batch (B = 5, BG subsampled), tracing
+``train_step`` (host copy, forward, backward and the Adam update) over 10
+steps. Prints one JSON line: the window's wall time per batch, the device's
+busy time (union of kernel and copy intervals), its idle share, device time
+by category, the top kernels, the top aten ops with their input shapes, and
+the host ops with the most self CPU time.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import sys
 import time
 
@@ -23,8 +29,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CATEGORIES = (  # first match wins
     ("roi_pool (K1)", ("roi_pool_fwd",)),
     ("bn_relu_pool (K5)", ("bn_relu_pool_fwd",)),
-    ("convolution", ("conv", "cudnn", "implicit", "xmma", "fprop")),
+    ("roi_pool backward (K3)", ("roi_pool_bwd",)),
+    ("bn_relu_pool backward (K6)", ("bn_relu_pool_bwd",)),
+    ("convolution", ("conv", "cudnn", "implicit", "xmma", "fprop", "dgrad",
+                     "wgrad")),
     ("matmul", ("gemm", "cutlass", "cublas", "splitk")),
+    ("optimizer (Adam)", ("multi_tensor_apply", "adam")),
     ("copy", ("memcpy", "memset")),
 )
 
@@ -44,6 +54,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_serve: needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    train = "--train" in sys.argv[1:]
     sys.path.insert(0, ROOT)
     import chip_smoke
     from cova_tpu_torch.config import Config
@@ -51,19 +62,36 @@ def main() -> int:
     from cova_tpu_torch.data.pipeline import make_eval_pipeline
     from cova_tpu_torch.data.synthetic import InMemoryWebDataset
     from cova_tpu_torch.models.cova import build_model
-    from cova_tpu_torch.train.steps import forward_step
+    from cova_tpu_torch.train.steps import (
+        create_train_state,
+        forward_step,
+        train_step,
+    )
 
     dev = torch.device("cuda")
     cfg = Config(img_height=chip_smoke.IMG)
-    model = build_model(cfg, device="cpu")
-    model.load_state_dict(chip_smoke.random_state_dict(torch, cfg))
-    model = model.to(dev)
-    ds = InMemoryWebDataset(chip_smoke.B, chip_smoke.IMG,
-                            seed=chip_smoke.SEED, max_boxes=cfg.max_boxes)
-    _, batch = next(iter(make_eval_pipeline(cfg, ds).epoch(0)))
-    batch, _ = pad_batch(batch, chip_smoke.B)
+    if train:
+        b = chip_smoke.TRAIN_B
+        state = create_train_state(build_model(cfg, device=dev), cfg)
+        batch = chip_smoke.fixed_train_batch(cfg)
+        gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+
+        def run():
+            train_step(state, batch, gen)
+    else:
+        b = chip_smoke.B
+        model = build_model(cfg, device="cpu")
+        model.load_state_dict(chip_smoke.random_state_dict(torch, cfg))
+        model = model.to(dev)
+        ds = InMemoryWebDataset(b, chip_smoke.IMG, seed=chip_smoke.SEED,
+                                max_boxes=cfg.max_boxes)
+        _, batch = next(iter(make_eval_pipeline(cfg, ds).epoch(0)))
+        batch, _ = pad_batch(batch, b)
+
+        def run():
+            forward_step(model, batch)
     for _ in range(3):  # warm-up: kernel build, cuDNN plans, allocator
-        forward_step(model, batch)
+        run()
     torch.cuda.synchronize()
 
     reps = 10
@@ -72,10 +100,14 @@ def main() -> int:
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            forward_step(model, batch)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # Device kernels and copies; user-annotation ranges (such as
+    # "Optimizer.step#Adam.step") span other events and are left out.
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not re.fullmatch(r"[\w.]+#[\w.]+", e.name)]
     if not events:
         print("profile_torch_serve: the trace holds no device events",
               file=sys.stderr)
@@ -102,9 +134,15 @@ def main() -> int:
          if a.key.startswith("aten::") and a.self_device_time_total > 0),
         key=lambda a: -a.self_device_time_total,
     )[:12]
+    # Where the host's time goes: the ops with the most self CPU time.
+    host = sorted(
+        (a for a in prof.key_averages() if a.self_cpu_time_total > 0),
+        key=lambda a: -a.self_cpu_time_total,
+    )[:12]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "batch": chip_smoke.B, "P": chip_smoke.P, "reps": reps,
+        "mode": "train_step" if train else "serve",
+        "batch": b, "P": chip_smoke.P, "reps": reps,
         "wall_ms_per_batch": wall_ms / reps,
         "device_busy_ms_per_batch": busy_us / 1e3 / reps,
         "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
@@ -116,6 +154,8 @@ def main() -> int:
         "top_aten_ops_ms_per_batch": [
             [a.key, str(a.input_shapes)[:120],
              a.self_device_time_total / 1e3 / reps] for a in ops],
+        "top_host_ops_self_ms_per_batch": [
+            [a.key, a.self_cpu_time_total / 1e3 / reps] for a in host],
     }))
     return 0
 

@@ -6,9 +6,15 @@ so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -q tests/test_torch_port_kernels.py
 
-Both kernels must equal their plain versions bit for bit: the RoIPool
-forward selects input values, and the fused BN+ReLU+pool forward rounds the
-affine exactly as the plain version does (see the notes in ``csrc/``).
+The forward kernels must equal their plain versions bit for bit: the
+RoIPool forward selects input values, and the fused BN+ReLU+pool forward
+rounds the affine exactly as the plain version does. So must the backward
+kernels' main outputs: the RoIPool backward adds each pixel's contributions
+in the plain version's order, and the stem pool's backward routes and adds
+as its plain version does. Its d(scale)/d(shift) are sums over the whole
+map in another order: rtol 1e-4, and atol 1e-4 of the largest of them
+(f32 sums of up to a million terms). The bf16 inputs sit on a coarse grid,
+so ties are common and the tie rules run (see the notes in ``csrc/``).
 """
 
 import numpy as np
@@ -17,9 +23,18 @@ import torch
 
 from cova_tpu_torch.ops.bn_pool import (
     bn_relu_pool_s2d,
+    bn_relu_pool_s2d_backward,
+    bn_relu_pool_s2d_backward_reference,
+    bn_relu_pool_s2d_plain,
     bn_relu_pool_s2d_reference,
 )
-from cova_tpu_torch.ops.roi_pool import roi_pool, roi_pool_reference
+from cova_tpu_torch.ops.roi_pool import (
+    roi_pool,
+    roi_pool_backward,
+    roi_pool_backward_reference,
+    roi_pool_plain,
+    roi_pool_reference,
+)
 
 
 @pytest.fixture
@@ -84,3 +99,92 @@ def test_bn_relu_pool_kernel_is_bit_exact(cuda, dtype, shape):
     torch.cuda.synchronize()
     assert bn_relu_pool_s2d.launches == before + 1
     assert torch.equal(got, bn_relu_pool_s2d_reference(ys, scale, shift))
+
+
+def _tied(gen, shape, dtype, device, levels=8.0):
+    """Normal values rounded to 1/levels: many exact ties."""
+    x = torch.randn(*shape, generator=gen, device=device)
+    return ((x * levels).round() / levels).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,p", [(3, 40, 36, 64, 50), (2, 13, 9, 6, 7),
+                                       (2, 320, 320, 64, 232)])
+def test_roi_pool_backward_kernel_is_bit_exact(cuda, dtype, b, h, w, c, p):
+    gen = torch.Generator(device=cuda).manual_seed(h * w + c)
+    rng = np.random.default_rng(c + p)
+    fm = _tied(gen, (b, h, w, c), dtype, cuda, levels=2.0)
+    boxes, mask = _boxes(rng, b, p, 4 * max(h, w))
+    boxes, mask = boxes.to(cuda), mask.to(cuda)
+    pooled = roi_pool_reference(fm, boxes, mask, 0.25)
+    g = torch.randn(pooled.shape, generator=gen, device=cuda).to(dtype)
+    before = roi_pool_backward.launches
+    got = roi_pool_backward(fm, boxes, mask, pooled, g, 0.25)
+    torch.cuda.synchronize()
+    assert roi_pool_backward.launches == before + 1
+    want = roi_pool_backward_reference(fm, boxes, mask, pooled, g, 0.25)
+    assert got.dtype == dtype and got.shape == fm.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 20, 18, 64), (1, 7, 5, 6),
+                                   (2, 320, 320, 64)])
+def test_bn_relu_pool_backward_kernel_matches_plain(cuda, dtype, shape):
+    b, u, v, o = shape
+    gen = torch.Generator(device=cuda).manual_seed(u * v + o)
+    ys = _tied(gen, (b, u, v, 4 * o), dtype, cuda)
+    scale = torch.rand(o, generator=gen, device=cuda) + 0.5
+    shift = torch.randn(o, generator=gen, device=cuda) * 0.5
+    g = torch.randn(b, u, v, o, generator=gen, device=cuda).to(dtype)
+    before = bn_relu_pool_s2d_backward.launches
+    dys, dsc, dsh = bn_relu_pool_s2d_backward(ys, scale, shift, g)
+    torch.cuda.synchronize()
+    assert bn_relu_pool_s2d_backward.launches == before + 1
+    w_dys, w_dsc, w_dsh = bn_relu_pool_s2d_backward_reference(
+        ys, scale, shift, g)
+    assert dys.dtype == dtype and torch.equal(dys, w_dys)
+    for got, want in ((dsc, w_dsc), (dsh, w_dsh)):
+        assert got.shape == (o,) and got.dtype == torch.float32
+        torch.testing.assert_close(
+            got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_through_the_kernels_equals_the_plain_pairs(cuda, dtype):
+    """The differentiable wrappers launch forward and backward kernels and
+    give the gradients of the plain (forward, backward) pairs."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    rng = np.random.default_rng(7)
+    o = 64
+    ys = _tied(gen, (2, 24, 20, 4 * o), dtype, cuda)
+    scale = torch.rand(o, generator=gen, device=cuda) + 0.5
+    shift = torch.randn(o, generator=gen, device=cuda) * 0.5
+    boxes, mask = _boxes(rng, 2, 30, 96)
+    boxes, mask = boxes.to(cuda), mask.to(cuda)
+    gout = torch.randn(2, 30, 3, 3, o, generator=gen, device=cuda)
+    grads = {}
+    for name, pool, roi in (("kernel", bn_relu_pool_s2d, roi_pool),
+                            ("plain", bn_relu_pool_s2d_plain,
+                             roi_pool_plain)):
+        args = [t.clone().requires_grad_() for t in (ys, scale, shift)]
+        counts = (bn_relu_pool_s2d.launches,
+                  bn_relu_pool_s2d_backward.launches, roi_pool.launches,
+                  roi_pool_backward.launches)
+        fm = pool(*args)
+        out = roi(fm, boxes, mask, 0.25)
+        (out.float() * gout).sum().backward()
+        torch.cuda.synchronize()
+        launched = [n1 - n0 for n0, n1 in zip(counts, (
+            bn_relu_pool_s2d.launches, bn_relu_pool_s2d_backward.launches,
+            roi_pool.launches, roi_pool_backward.launches))]
+        assert launched == ([1, 1, 1, 1] if name == "kernel" else [0] * 4)
+        grads[name] = [a.grad for a in args]
+    k, p = grads["kernel"], grads["plain"]
+    assert torch.equal(k[0], p[0])
+    for a, b in zip(k[1:], p[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
