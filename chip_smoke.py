@@ -29,8 +29,9 @@ Phases, each printing one JSON line:
    every page.
 5. train: ``cli.main(["train", ...])`` for 2 epochs on 40 synthetic pages
    at full width (the flagship defaults: -bs 5 -cs 12 -hd 384 -bbhd 32,
-   bf16), with every launch count set to 0 before and read after (all four
-   kernels must have launched); finite epoch losses and every artifact
+   bf16), with every launch count set to 0 before and read after (the four
+   kernels of the default path must have launched, the conv kernels not);
+   finite epoch losses and every artifact
    (log, imgwise/domainwise CSVs, fold_wise_acc.csv, metrics.jsonl, best and
    last checkpoints); then ``eval`` and ``predict`` from the trained
    checkpoint. Then one train step on a fixed batch is timed (ms per step,
@@ -38,7 +39,35 @@ Phases, each printing one JSON line:
    are compared with those of the plain (forward, backward) pairs, during
    which no kernel may launch.
 
-Then it prints the kernels' summary line, the ``nvidia-smi`` line, and, last,
+6. conv_kernels: the two 3x3 conv kernels (input-stationary ``conv3x3``,
+   output-stationary ``conv3x3_roll``) against the plain nine-product
+   version, bf16 and f32, at small ragged shapes (H != W, 48 -> 256 channels
+   and its transpose, 64 -> 64) and at the model's shapes at B = 10
+   ([10, 320, 320, 64] -> 64 and the stem's [10, 320, 320, 48] -> 256), with
+   ``conv3x3``'s dx and dW against the plain pair; bf16 within 2^-7 of the
+   largest output, f32 within 1e-5 of it, with the share of elements that
+   are not bit-equal; times beside the plain version's, ``F.conv2d``'s
+   (cuDNN, TF32 off) and the bound (989 TFLOP/s bf16, 67 TFLOP/s f32,
+   3.35 TB/s).
+7. conv: with ``COVA_CUDA_CONV=1``, one B = 10 batch served and ``cli
+   train`` for one epoch at B = 5, at full width; ``conv3x3`` must launch 5
+   times per forward and 4 more per backward and ``F.conv2d`` must run no
+   3x3 stride-1 conv meanwhile; logits and retrieval picks are held
+   against the opt-in-off run from the same weights, and one step's
+   gradients against the plain nine-product conv's (f32, at the train
+   phase's tolerance) and within cuDNN's own distance from it (f32 and
+   bf16; see the note in ``phase_conv``); then ``conv3x3``,
+   ``conv3x3_roll`` and cuDNN on a served feature map.
+8. backbones: the full ``resnet18`` under the opt-in (the kernel at 128,
+   256 and 512 channels) and ``resnet50_stem`` with and without
+   ``COVA_REMAT=1``, at 640^2 and B = 2: logits against the plain-op path,
+   train steps, peak memory.
+
+The train phase also feeds batches through the device prefetcher and holds
+them against the host batches byte for byte.
+
+(Phases run in the order 1-3, 6, 4, 5, 7, 8.) Then it prints the kernels'
+summary line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without a GPU,
 or outside the repo, it exits non-zero before printing any result.
 """
@@ -57,6 +86,7 @@ from unittest import mock
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 SEED = 123
 B, IMG, P, CTX = 10, 1280, 232, 12
 N_PAGES, MAX_PAGES = 100, 20  # predict serves the 20-page test split
@@ -96,9 +126,9 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -287,30 +317,169 @@ def phase_kernels(torch, dev):
     return results
 
 
-def launch_counts():
-    """Every kernel wrapper's launch count, by kernel name."""
-    from cova_tpu_torch.ops import bn_pool, roi_pool
+# Shapes of the conv kernels' checks: (B, H, W, C, O). The small ones have
+# H != W, neither a multiple of a tile side, and more than one row segment
+# of the output-stationary kernel; the flagship ones are the model's convs at
+# the serving batch (layer1's four, and the s2d stem's).
+CONV_SMALL = ((2, 13, 37, 48, 256), (2, 13, 37, 256, 48), (2, 13, 37, 64, 64))
+CONV_LAYER1 = (B, IMG // 4, IMG // 4, 64, 64)
+CONV_STEM = (B, IMG // 4, IMG // 4, 48, 256)
+# Largest |kernel - plain| over the largest |plain|: bf16 rounds the f32 sum
+# once (half a step, 2^-9 relative) and the sums are taken in another order,
+# so a sum next to a rounding boundary may land one step (2^-8) away; 2^-7
+# leaves a factor of two. f32: only the order of the sum differs.
+CONV_TOL = {"torch.bfloat16": 2.0 ** -7, "torch.float32": 1e-5}
 
-    return {"roi_pool_fwd": roi_pool.roi_pool.launches,
-            "bn_relu_pool_fwd": bn_pool.bn_relu_pool_s2d.launches,
-            "roi_pool_bwd": roi_pool.roi_pool_backward.launches,
-            "bn_relu_pool_bwd": bn_pool.bn_relu_pool_s2d_backward.launches}
+
+def conv_operands(torch, gen, shape, dtype, dev):
+    b, h, w, c, o = shape
+    x = torch.randn(b, h, w, c, generator=gen, device=dev).to(dtype)
+    k = (torch.randn(3, 3, c, o, generator=gen, device=dev)
+         * (2.0 / (9 * c)) ** 0.5)
+    return x, k
+
+
+def conv_compare(torch, got, want, what):
+    """Max abs error of ``got`` against the plain ``want``, held to
+    CONV_TOL of the largest plain value; also the share of elements that are
+    not bit-equal."""
+    need(got.shape == want.shape and got.dtype == want.dtype,
+         f"{what}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+         f"{want.dtype}")
+    top = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    need(err <= CONV_TOL[str(want.dtype)] * top,
+         f"{what} differs from its plain version by {err} (largest value "
+         f"{top})")
+    return dict(max_abs_err=err, largest=top,
+                not_bit_equal=float((got != want).float().mean()))
+
+
+def conv_bound(shape, itemsize, dtype_name):
+    b, h, w, c, o = shape
+    n_bytes = (b * h * w * (c + o) + 9 * c * o) * itemsize
+    n_ops = 2 * 9 * c * o * b * h * w
+    rate = BF16_OPS_PER_S if dtype_name == "torch.bfloat16" else F32_OPS_PER_S
+    ms, by = bound_ms(n_bytes, n_ops, rate)
+    return dict(bound_ms=ms, bound_by=by, bytes=n_bytes, operations=n_ops)
+
+
+def phase_conv_kernels(torch, dev):
+    """K7 (``conv3x3``) and K8 (``conv3x3_roll``) against the plain version:
+    values at small ragged shapes and at the flagship shapes, K7's dx and dW
+    against the plain (forward, backward) pair, and times beside the plain
+    version's, ``F.conv2d``'s (cuDNN, TF32 off) and the bound."""
+    import torch.nn.functional as F
+
+    from cova_tpu_torch.ops.conv3x3 import (
+        conv3x3,
+        conv3x3_plain,
+        conv3x3_reference,
+        conv3x3_roll,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    checks = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in CONV_SMALL:
+            x, k = conv_operands(torch, gen, shape, dtype, dev)
+            want = conv3x3_reference(x, k)
+            tag = f"{shape[3]}to{shape[4]}_{shape[1]}x{shape[2]}_{dtype}"
+            for name, fn in (("conv3x3_fwd", conv3x3),
+                             ("conv3x3_roll_fwd", conv3x3_roll)):
+                got = fn(x, k)
+                torch.cuda.synchronize()
+                checks[f"{name}_{tag}"] = conv_compare(
+                    torch, got, want, f"{name} {tag}")
+            # dx through the kernel on the flipped weights, dW through the
+            # library conv, against the plain pair.
+            g = torch.randn(want.shape, generator=gen, device=dev).to(dtype)
+            grads = []
+            for fn in (conv3x3, conv3x3_plain):
+                xg, kg = x.clone().requires_grad_(), k.clone().requires_grad_()
+                grads.append(torch.autograd.grad(fn(xg, kg), (xg, kg), g))
+            torch.cuda.synchronize()
+            checks[f"conv3x3_dx_{tag}"] = conv_compare(
+                torch, grads[0][0], grads[1][0], f"conv3x3 dx {tag}")
+            dw_err = float((grads[0][1] - grads[1][1]).abs().max())
+            need(dw_err <= 2e-2 * float(grads[1][1].abs().max()),
+                 f"conv3x3 dW {tag} differs by {dw_err}")
+
+    results = {}
+    for label, shape in (("layer1", CONV_LAYER1), ("stem", CONV_STEM)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, k = conv_operands(torch, gen, shape, dtype, dev)
+            want = conv3x3_reference(x, k)
+            kd = k.to(dtype)
+            k_oihw = kd.permute(3, 2, 0, 1).contiguous()
+            x_nchw = x.permute(0, 3, 1, 2)  # a channels-last view
+            lib = F.conv2d(x_nchw, k_oihw, padding=1).permute(0, 2, 3, 1)
+            row = dict(shape=list(shape), dtype=str(dtype),
+                       **conv_bound(shape, x.element_size(), str(dtype)))
+            row["library_vs_plain"] = float(
+                (lib.float() - want.float()).abs().max())
+            row["plain_ms"] = cuda_ms(
+                torch, lambda: conv3x3_reference(x, k), reps=2)
+            row["library_ms"] = cuda_ms(
+                torch, lambda: F.conv2d(x_nchw, k_oihw, padding=1), reps=10,
+                warmup=3)
+            slow = dtype == torch.float32
+            for name, fn in (("conv3x3_fwd", conv3x3),
+                             ("conv3x3_roll_fwd", conv3x3_roll)):
+                got = fn(x, k)
+                torch.cuda.synchronize()
+                cmp_ = conv_compare(torch, got, want,
+                                    f"{name} {label} {dtype}")
+                ms = cuda_ms(torch, lambda: fn(x, kd), reps=3 if slow else 10,
+                             warmup=1 if slow else 3)
+                key = name + ("" if label == "layer1" else "_stem") + (
+                    "_f32" if slow else "")
+                results[key] = dict(row, ms=ms, **cmp_)
+                del got
+            del x, k, want, lib
+    # K7 as the backward uses it, at the train batch: dx of layer1's conv.
+    shape = (TRAIN_B,) + CONV_LAYER1[1:]
+    x, k = conv_operands(torch, gen, shape, torch.bfloat16, dev)
+    g = torch.randn(shape[:3] + (shape[4],), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    grads = []
+    for fn in (conv3x3, conv3x3_plain):
+        xg, kg = x.clone().requires_grad_(), k.clone().requires_grad_()
+        grads.append(torch.autograd.grad(fn(xg, kg), (xg, kg), g))
+    torch.cuda.synchronize()
+    checks["conv3x3_dx_layer1_train_batch"] = conv_compare(
+        torch, grads[0][0], grads[1][0], "conv3x3 dx layer1")
+    return results, checks
+
+
+def kernel_wrappers():
+    """Every kernel wrapper that counts its launches, by kernel name."""
+    from cova_tpu_torch.ops import bn_pool, conv3x3, roi_pool
+
+    return {"roi_pool_fwd": roi_pool.roi_pool,
+            "bn_relu_pool_fwd": bn_pool.bn_relu_pool_s2d,
+            "roi_pool_bwd": roi_pool.roi_pool_backward,
+            "bn_relu_pool_bwd": bn_pool.bn_relu_pool_s2d_backward,
+            "conv3x3_fwd": conv3x3.conv3x3,
+            "conv3x3_roll_fwd": conv3x3.conv3x3_roll}
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def zero_counts() -> None:
-    from cova_tpu_torch.ops import bn_pool, roi_pool
-
-    for fn in (roi_pool.roi_pool, bn_pool.bn_relu_pool_s2d,
-               roi_pool.roi_pool_backward,
-               bn_pool.bn_relu_pool_s2d_backward):
+    for fn in kernel_wrappers().values():
         fn.launches = 0
 
 
 @contextlib.contextmanager
 def plain_ops():
     """The model's kernel ops swapped for their plain (forward, backward)
-    pairs; fails unless no kernel launched meanwhile, so a moved call site
-    cannot make the plain run compare the kernels with themselves."""
+    pairs, with the conv opt-in off; fails unless no kernel launched
+    meanwhile, so a moved call site cannot make the plain run compare the
+    kernels with themselves."""
     from cova_tpu_torch.models import cova as cova_mod
     from cova_tpu_torch.models import resnet as resnet_mod
     from cova_tpu_torch.ops.bn_pool import bn_relu_pool_s2d_plain
@@ -319,11 +488,33 @@ def plain_ops():
     before = launch_counts()
     with mock.patch.object(cova_mod, "roi_pool", roi_pool_plain), \
             mock.patch.object(resnet_mod, "bn_relu_pool_s2d",
-                              bn_relu_pool_s2d_plain):
+                              bn_relu_pool_s2d_plain), \
+            mock.patch.dict(os.environ, {"COVA_CUDA_CONV": "0"}):
         yield
     need(launch_counts() == before,
          f"a kernel launched during the plain run: {before} -> "
          f"{launch_counts()}")
+
+
+@contextlib.contextmanager
+def conv_opt_in(watch: bool = True):
+    """``COVA_CUDA_CONV=1`` inside. With ``watch``, fails if ``F.conv2d``
+    ran a 3x3 stride-1 conv meanwhile: with the opt-in set those belong to
+    the hand-written kernel."""
+    import torch.nn.functional as F
+
+    real, seen = F.conv2d, []
+
+    def conv2d(x, w, bias=None, stride=1, *args, **kw):
+        if tuple(w.shape[2:]) == (3, 3) and stride in (1, (1, 1)):
+            seen.append(tuple(w.shape))
+        return real(x, w, bias, stride, *args, **kw)
+
+    with mock.patch.dict(os.environ, {"COVA_CUDA_CONV": "1"}), \
+            mock.patch.object(F, "conv2d", conv2d if watch else real):
+        yield
+    need(not seen, f"F.conv2d ran 3x3 stride-1 convs under the opt-in: "
+                   f"{seen[:4]}")
 
 
 def random_state_dict(torch, cfg):
@@ -372,7 +563,7 @@ def phase_serve(torch, dev, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: n for k, n in launch_counts().items()
-                if k.endswith("_fwd")}
+                if k in ("roi_pool_fwd", "bn_relu_pool_fwd")}
     need(rc == 0, f"predict returned {rc}")
     need(all(n > 0 for n in launches.values()),
          f"a kernel was not launched on the main path: {launches}")
@@ -481,6 +672,19 @@ def grad_diff(a, b):
                 max_rel_diff=rel)
 
 
+def grad_element_share(a, b, rel=1e-3):
+    """The share of all gradient elements of ``a`` farther from ``b`` than
+    ``rel`` of their tensor's largest gradient (plus GRAD_ATOL of the
+    model's largest)."""
+    g = max(float(v.abs().max()) for v in b.values())
+    off = total = 0
+    for k in b:
+        tol = rel * float(b[k].abs().max()) + GRAD_ATOL * g
+        off += int(((a[k] - b[k]).abs() > tol).sum())
+        total += b[k].numel()
+    return off / total
+
+
 def phase_train(torch, dev, tmp):
     import numpy as np
 
@@ -499,8 +703,11 @@ def phase_train(torch, dev, tmp):
     wall = time.perf_counter() - t0
     launches = launch_counts()
     need(rc == 0, f"train returned {rc}")
+    conv = {k: launches.pop(k) for k in ("conv3x3_fwd", "conv3x3_roll_fwd")}
     need(all(n > 0 for n in launches.values()),
          f"a kernel was not launched on the train path: {launches}")
+    need(not any(conv.values()),
+         f"a conv kernel launched with the opt-in off: {conv}")
 
     cfg = Config(img_height=IMG)  # the flagship defaults of the CLI
     res = os.path.join(out, cfg.params_key)
@@ -528,6 +735,8 @@ def phase_train(torch, dev, tmp):
     rc = cli.main(["predict", *common, "--out_dir", preds])
     need(rc == 0 and os.path.isfile(os.path.join(preds, "retrieval.csv")),
          f"predict from the trained checkpoint returned {rc}")
+
+    prefetch = check_prefetcher(torch, dev, cfg)
 
     # One train step on a fixed batch, timed; peak memory over the window.
     batch = fixed_train_batch(cfg)
@@ -573,7 +782,366 @@ def phase_train(torch, dev, tmp):
         grad_vs_plain=vs_plain,
         grad_kernel_rerun=grad_diff(grads_k2, grads_k),
         grad_rtol=GRAD_RTOL, grad_atol=GRAD_ATOL, plain_step_s=plain_s,
+        prefetcher=prefetch,
     )
+
+
+def check_prefetcher(torch, dev, cfg):
+    """The trainer's path to the device: every prefetched batch equals its
+    host batch byte for byte, and a first train step fed by the prefetcher
+    has the loss of the same step fed with the host batch."""
+    import numpy as np
+
+    from cova_tpu_torch.data.device_prefetch import device_prefetch
+    from cova_tpu_torch.data.pipeline import make_pipelines
+    from cova_tpu_torch.data.synthetic import InMemoryWebDataset
+    from cova_tpu_torch.models.cova import build_model
+    from cova_tpu_torch.train.steps import create_train_state, train_step
+
+    ds = InMemoryWebDataset(4 * TRAIN_B, IMG, seed=SEED + 2,
+                            max_boxes=cfg.max_boxes)
+    train_p, _, _ = make_pipelines(cfg, ds, ds, ds)
+    n_bytes, first = 0, None
+    for _, batch, on_device in device_prefetch(train_p.epoch(1), dev):
+        for name, host, t in zip(batch._fields, batch, on_device):
+            need(t.device.type == "cuda", f"{name} is on {t.device}")
+            need(np.array_equal(t.cpu().numpy(), host) and
+                 t.cpu().numpy().dtype == host.dtype,
+                 f"prefetched {name} differs from the host batch")
+            n_bytes += host.nbytes
+        if first is None:
+            first = (batch, on_device)
+    losses = []
+    for fed in first:
+        state = create_train_state(build_model(cfg, device=dev), cfg)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        losses.append(float(train_step(state, fed, gen)["loss_sum"]))
+    need(abs(losses[0] - losses[1]) <= 1e-6 * abs(losses[0]),
+         f"first-step loss {losses[1]} through the prefetcher, {losses[0]} "
+         f"without")
+    return dict(batches=4, bytes_compared=n_bytes, loss_host_fed=losses[0],
+                loss_prefetched=losses[1])
+
+
+def timed_forward(torch, model, batch, reps=10):
+    from cova_tpu_torch.train.steps import forward_step
+
+    out = forward_step(model, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        forward_step(model, batch)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / reps * 1e3
+
+
+def timed_steps(torch, cfg, dev, batch, sd=None, reps=10, warmup=2):
+    """ms per train step (Adam included) on a fixed batch from the seeded
+    init (or ``sd``), the last loss, and peak memory over the timed steps."""
+    from cova_tpu_torch.models.cova import build_model
+    from cova_tpu_torch.train.steps import create_train_state, train_step
+
+    state = create_train_state(build_model(cfg, device=dev), cfg)
+    if sd is not None:
+        state.model.load_state_dict(sd)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    losses = [float(train_step(state, batch, gen)["loss_sum"])
+              for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        m = train_step(state, batch, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    return dict(ms_per_step=ms, first_loss=losses[0],
+                last_loss=float(m["loss_sum"]),
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def compare_logits(torch, dev, batch, got, want, steps, what):
+    """Masked logits within ``steps`` bf16 steps (2^-8 relative each) of the
+    largest logit, and the same retrieval picks on every page; returns the
+    comparison's numbers."""
+    mask = torch.from_numpy(batch.box_mask).to(dev)
+    need(bool(torch.isfinite(got[mask]).all()), f"{what}: non-finite logits")
+    top = float(want[mask].abs().max())
+    tol = steps * 2.0 ** -8 * top
+    diff = float((got - want)[mask].abs().max())
+    neg = torch.tensor(float("-inf"), device=dev)
+    picks = [torch.where(mask[..., None], lg, neg).argmax(1)[:, 1:]
+             for lg in (got, want)]
+    agree = float((picks[0] == picks[1]).float().mean())
+    need(diff <= tol, f"{what}: logits differ by {diff} (tolerance {tol})")
+    need(agree == 1.0, f"{what}: retrieval picks agree on {agree:.1%} only")
+    return dict(logits_max_abs_diff=diff, largest_logit=top, logit_tol=tol,
+                mean_abs_diff=float((got - want)[mask].abs().mean()),
+                pick_agreement=agree)
+
+
+# Logits of the hand-written conv path against cuDNN's, bf16: both sum in
+# f32 and round once, in another order, so single conv outputs differ by one
+# bf16 step (2^-8 relative). With the seeded random weights the logits reach
+# about 30, where a step is 0.125; measured, the kernel path, cuDNN's and
+# the plain nine-product conv's logits differ from each other by exactly
+# one such step at most (mean 8e-4) and from an f32 forward by two. Allowed:
+# two steps of the largest logit for the five-conv stem, eight for the
+# seventeen convs of the full resnet18.
+CONV_LOGIT_STEPS = 2
+DEEP_LOGIT_STEPS = 8
+F32_GRAD_MAX = 0.1
+
+
+def phase_conv(torch, dev, tmp):
+    """The hand-written conv path at full width: with ``COVA_CUDA_CONV=1`` every
+    stride-1 3x3 conv of ``resnet18_stem`` runs K7, in serving (B = 10),
+    in ``cli train`` (B = 5) and in a timed train step; results are held
+    against the opt-in-off run from the same weights. Then the shoot-out of
+    K7, K8 and cuDNN on a served feature map."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from cova_tpu_torch import cli
+    from cova_tpu_torch.config import Config
+    from cova_tpu_torch.data.batching import pad_batch
+    from cova_tpu_torch.data.pipeline import make_eval_pipeline
+    from cova_tpu_torch.data.synthetic import InMemoryWebDataset
+    from cova_tpu_torch.models.cova import build_model
+    from cova_tpu_torch.ops.conv3x3 import (
+        conv3x3,
+        conv3x3_reference,
+        conv3x3_roll,
+    )
+    from cova_tpu_torch.train.steps import forward_step
+
+    cfg = Config(img_height=IMG)
+    pth = os.path.join(tmp, "saved_model.pth")
+    torch.save(random_state_dict(torch, cfg), pth)
+    model = cli.load_model(cfg, dev, pth)
+    ds = InMemoryWebDataset(B, IMG, seed=SEED, max_boxes=cfg.max_boxes)
+    _, batch = next(iter(make_eval_pipeline(cfg, ds).epoch(0)))
+    batch, _ = pad_batch(batch, B)
+
+    zero_counts()
+    off, ms_off = timed_forward(torch, model, batch)
+    need(not any(launch_counts()[k] for k in ("conv3x3_fwd",
+                                              "conv3x3_roll_fwd")),
+         "a conv kernel launched with the opt-in off")
+    zero_counts()
+    with conv_opt_in():
+        on = forward_step(model, batch)
+        torch.cuda.synchronize()
+        per_forward = launch_counts()["conv3x3_fwd"]
+    with conv_opt_in(watch=False):
+        _, ms_on = timed_forward(torch, model, batch)
+    need(per_forward == 5, f"K7 launched {per_forward} times per forward, "
+                           f"expected 5")
+    serve = dict(ms_per_batch=ms_on, ms_per_batch_opt_in_off=ms_off,
+                 pages_per_s=B / (ms_on / 1e3), k7_per_forward=per_forward,
+                 vs_opt_in_off=compare_logits(
+                     torch, dev, batch, on.logits, off.logits,
+                     CONV_LOGIT_STEPS, "conv path serving"))
+
+    # cli train, one epoch, with the opt-in set.
+    out = os.path.join(tmp, "conv_train")
+    zero_counts()
+    t0 = time.perf_counter()
+    with conv_opt_in():
+        rc = cli.main(["train", "--synthetic", str(TRAIN_PAGES),
+                       "--img_height", str(IMG), "--output_dir", out,
+                       "-e", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    need(rc == 0, f"train under the opt-in returned {rc}")
+    n = launch_counts()
+    fwd, bwd = n["bn_relu_pool_fwd"], n["bn_relu_pool_bwd"]
+    need(bwd > 0 and n["conv3x3_fwd"] == 5 * fwd + 4 * bwd,
+         f"K7 launched {n['conv3x3_fwd']} times over {fwd} forwards and "
+         f"{bwd} backwards; expected 5 per forward and 4 per backward")
+    with open(os.path.join(out, cfg.params_key, "Fold-1 logs.txt")) as f:
+        losses = [float(line.split("Loss:")[1].split()[0])
+                  for line in f if line.startswith("Epoch:")]
+    need(len(losses) == 1 and np.isfinite(losses[0]), f"losses {losses}")
+    train_launches = dict(n)
+
+    # The timed step and one step's gradients, opt-in on against off.
+    tb = fixed_train_batch(cfg)
+    with conv_opt_in():
+        step_on = timed_steps(torch, cfg, dev, tb)
+    step_off = timed_steps(torch, cfg, dev, tb)
+    # One step's gradients from one set of weights through three convs:
+    # the kernel (opt-in on), cuDNN (off) and the plain nine-product conv
+    # with the kernel's gradient rule. The train phase's tolerance
+    # (GRAD_RTOL) is made for runs that share their forward bit for bit;
+    # these do not, and a training loss has kinks: among ~10^6 ReLU inputs
+    # and pooled maxima some lie within a rounding of theirs, and a unit
+    # that changes sides moves gradient entries by percents.
+    #   f32 (TF32 off): the kernel and the plain conv differ only in the
+    # order of f32 sums, and their gradients must agree at GRAD_RTOL. cuDNN's
+    # f32 conv rounds differently from both (measured: 2.3% on one tensor
+    # against either, 0.4% between the two), so against cuDNN the kernel
+    # path may not be farther than the plain conv is, with a tenth of
+    # margin, nor farther than F32_GRAD_MAX of a tensor's largest gradient.
+    #   bf16: any two of the three forwards are a bf16 step apart, which
+    # moves winners of the bf16 max-pools and whole gradient paths with
+    # them (measured 5-24% between any two); the kernel path must stay
+    # within the spread between cuDNN and the plain conv.
+    from cova_tpu_torch.ops import conv3x3 as conv_mod
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    grads = {}
+    for dtype in ("float32", "bfloat16"):
+        dcfg = cfg.replace(compute_dtype=dtype)
+        probe = build_model(dcfg, device=dev)
+        sd = {k: v.clone() for k, v in probe.state_dict().items()}
+        before = launch_counts()["conv3x3_fwd"]
+        with conv_opt_in():
+            loss_on, g_on = step_grads(torch, probe, sd, tb, SEED)
+        need(launch_counts()["conv3x3_fwd"] - before == 9,
+             "K7 did not launch 5 + 4 times in one forward and backward")
+        loss_off, g_off = step_grads(torch, probe, sd, tb, SEED)
+        before = launch_counts()["conv3x3_fwd"]
+        with conv_opt_in(watch=False), mock.patch.object(
+                conv_mod, "conv3x3", conv_mod.conv3x3_plain):
+            _, g_plain = step_grads(torch, probe, sd, tb, SEED)
+        need(launch_counts()["conv3x3_fwd"] == before,
+             "K7 launched in the plain-conv run")
+        need(abs(loss_on - loss_off) <= 1e-3 * abs(loss_off),
+             f"{dtype} train losses {loss_on} (opt-in) vs {loss_off}")
+        row = dict(loss_opt_in=loss_on, loss_opt_in_off=loss_off,
+                   vs_opt_in_off=grad_diff(g_on, g_off),
+                   vs_plain_conv=grad_diff(g_on, g_plain),
+                   cudnn_vs_plain_conv=grad_diff(g_off, g_plain),
+                   elements_beyond_1e_3_vs_opt_in_off=grad_element_share(
+                       g_on, g_off),
+                   elements_beyond_1e_3_vs_plain_conv=grad_element_share(
+                       g_on, g_plain))
+        share = {k: row[k]["share_of_tolerance"] for k in (
+            "vs_opt_in_off", "vs_plain_conv", "cudnn_vs_plain_conv")}
+        if dtype == "float32":
+            ok = (share["vs_plain_conv"] <= 1.0
+                  and share["vs_opt_in_off"]
+                  <= 1.1 * share["cudnn_vs_plain_conv"] + 1.0
+                  and row["vs_opt_in_off"]["max_rel_diff"] <= F32_GRAD_MAX)
+        else:
+            ok = share["vs_opt_in_off"] <= max(
+                1.0, share["cudnn_vs_plain_conv"])
+        need(ok, f"{dtype} gradients under the opt-in differ beyond the "
+                 f"tolerance: {row}")
+        grads[dtype] = row
+        del probe, sd, g_on, g_off, g_plain
+    torch.backends.cudnn.allow_tf32 = tf32
+
+    # Shoot-out on a served feature map: layer1's input and its first conv.
+    layer1 = getattr(model.convnet, "4")
+    captured = []
+    hook = layer1[0].register_forward_pre_hook(
+        lambda mod, args: captured.append(args[0]))
+    forward_step(model, batch)
+    hook.remove()
+    with torch.inference_mode():
+        fm = captured[0]  # [10, 320, 320, 64]
+        need(tuple(fm.shape) == CONV_LAYER1[:4], f"layer1 input "
+                                                 f"{tuple(fm.shape)}")
+        w = layer1[0].conv1.weight.detach()
+        k = w.permute(2, 3, 1, 0).contiguous()
+        want = conv3x3_reference(fm, k)
+        w16 = w.to(fm.dtype)
+        nchw = fm.permute(0, 3, 1, 2)
+        shoot = {}
+        for name, fn in (
+                ("conv3x3_fwd", lambda: conv3x3(fm, k)),
+                ("conv3x3_roll_fwd", lambda: conv3x3_roll(fm, k)),
+                ("library", lambda: F.conv2d(nchw, w16, padding=1)
+                 .permute(0, 2, 3, 1))):
+            cmp_ = conv_compare(torch, fn().contiguous(), want,
+                                f"shoot-out {name}")
+            shoot[name] = dict(ms=cuda_ms(torch, fn, reps=10, warmup=2),
+                               **cmp_)
+    launches = {"conv3x3_fwd": train_launches["conv3x3_fwd"],
+                "conv3x3_roll_fwd": launch_counts()["conv3x3_roll_fwd"]}
+    need(launches["conv3x3_roll_fwd"] > 0, "K8 was not launched")
+    return launches, dict(
+        serve=serve, train_wall_s=wall, epoch_loss=losses[0],
+        train_launches=train_launches, step=step_on,
+        step_opt_in_off=step_off, step_gradients=grads,
+        grad_rtol=GRAD_RTOL, grad_atol=GRAD_ATOL, shoot_out=shoot,
+    )
+
+
+def phase_backbones(torch, dev):
+    """The full ``resnet18`` with the conv opt-in (K7 at C = 128, 256, 512)
+    and ``resnet50_stem`` with and without ``COVA_REMAT=1``, at 640^2,
+    B = 2, P = 232, bf16: a forward held against the plain-op path, and
+    train steps with their time and peak memory."""
+    from cova_tpu_torch.config import Config
+    from cova_tpu_torch.data.batching import pad_batch
+    from cova_tpu_torch.data.pipeline import make_eval_pipeline
+    from cova_tpu_torch.data.synthetic import InMemoryWebDataset
+    from cova_tpu_torch.models.cova import build_model
+    from cova_tpu_torch.train.steps import forward_step
+
+    size, b = 640, 2
+    results = {}
+    for name in ("resnet18", "resnet50_stem"):
+        cfg = Config(img_height=size, backbone=name, batch_size=b,
+                     eval_batch_size=b)
+        ds = InMemoryWebDataset(b, size, seed=SEED, max_boxes=cfg.max_boxes)
+        _, batch = next(iter(make_eval_pipeline(cfg, ds).epoch(0)))
+        batch, _ = pad_batch(batch, b)
+        model = build_model(cfg, device=dev)
+        model.load_state_dict(random_state_dict(torch, cfg))
+        with plain_ops():
+            plain = forward_step(model, batch)
+        row = dict(img=size, batch=b, P=batch.boxes.shape[1])
+        if name == "resnet18":
+            before = launch_counts()["conv3x3_fwd"]
+            with conv_opt_in():
+                out = forward_step(model, batch)
+                torch.cuda.synchronize()
+                row["k7_per_forward"] = (launch_counts()["conv3x3_fwd"]
+                                         - before)
+                need(row["k7_per_forward"] == 14,
+                     f"K7 launched {row['k7_per_forward']} times in a "
+                     f"resnet18 forward, expected 14")
+                before = launch_counts()["conv3x3_fwd"]
+                row["step_opt_in"] = timed_steps(torch, cfg, dev, batch,
+                                                 reps=3, warmup=1)
+                per_step = (launch_counts()["conv3x3_fwd"] - before) // 4
+                need(per_step == 27, f"K7 launched {per_step} times per "
+                                     f"resnet18 train step, expected 27")
+            row["step"] = timed_steps(torch, cfg, dev, batch, reps=3,
+                                      warmup=1)
+            steps = DEEP_LOGIT_STEPS
+        else:
+            out = forward_step(model, batch)
+            row["step"] = timed_steps(torch, cfg, dev, batch, reps=3,
+                                      warmup=1)
+            with mock.patch.dict(os.environ, {"COVA_REMAT": "1"}):
+                row["step_remat"] = timed_steps(torch, cfg, dev, batch,
+                                                reps=3, warmup=1)
+            a, r = row["step"], row["step_remat"]
+            need(abs(a["first_loss"] - r["first_loss"])
+                 <= 1e-5 * abs(a["first_loss"]),
+                 f"first loss {r['first_loss']} with remat, "
+                 f"{a['first_loss']} without")
+            need(r["peak_memory_bytes"] < a["peak_memory_bytes"],
+                 f"remat did not lower peak memory: {r} vs {a}")
+            steps = CONV_LOGIT_STEPS
+        for key in ("step", "step_opt_in", "step_remat"):
+            if key in row:
+                need(row[key]["last_loss"] == row[key]["last_loss"],
+                     f"{name} {key}: non-finite loss")
+        need(tuple(out.logits.shape) == (b, batch.boxes.shape[1], 4),
+             f"{name}: logits {tuple(out.logits.shape)}")
+        row["vs_plain_ops"] = compare_logits(
+            torch, dev, batch, out.logits, plain.logits, steps,
+            f"{name} forward")
+        results[name] = row
+        del model
+        torch.cuda.empty_cache()
+    return results
 
 
 def main() -> int:
@@ -604,38 +1172,71 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": sorted(reports), "ptxas": ptxas})
 
-    kernels = phase_kernels(torch, dev)
-    emit({"phase": "kernels", "names": sorted(kernels), "results": kernels})
+    # Phase names as arguments run those phases alone (for work on one of
+    # them); the summary and the ok line come only from a whole run.
+    phases = ("kernels", "conv_kernels", "serve", "train", "conv",
+              "backbones")
+    only = sys.argv[1:]
+    need(all(p in phases for p in only), f"phases are {phases}")
+    kernels, launches = {}, {}
+    if not only or "kernels" in only:
+        kernels.update(phase_kernels(torch, dev))
+        emit({"phase": "kernels", "names": sorted(kernels),
+              "results": kernels})
+    if not only or "conv_kernels" in only:
+        conv_results, conv_checks = phase_conv_kernels(torch, dev)
+        kernels.update(conv_results)
+        emit({"phase": "conv_kernels", "results": conv_results,
+              "checks": conv_checks, "tolerance": CONV_TOL,
+              "peaks": {"hbm_bytes_per_s": HBM_BYTES_PER_S,
+                        "bf16_ops_per_s": BF16_OPS_PER_S,
+                        "f32_ops_per_s": F32_OPS_PER_S,
+                        "source": "NVIDIA H100 SXM data sheet, dense"}})
+    if not only or "serve" in only:
+        with tempfile.TemporaryDirectory() as tmp:
+            serve_launches, serve = phase_serve(torch, dev, tmp)
+        emit({"phase": "serve", "launches": serve_launches, **serve})
+    if not only or "train" in only:
+        with tempfile.TemporaryDirectory() as tmp:
+            train_launches, train = phase_train(torch, dev, tmp)
+        launches.update(train_launches)
+        emit({"phase": "train", "launches": train_launches, **train})
+    if not only or "conv" in only:
+        with tempfile.TemporaryDirectory() as tmp:
+            conv_launches, conv = phase_conv(torch, dev, tmp)
+        launches.update(conv_launches)
+        emit({"phase": "conv", "launches": conv_launches, **conv})
+    if not only or "backbones" in only:
+        emit({"phase": "backbones", **phase_backbones(torch, dev)})
+    if only:
+        emit({"phases_run": only, "seconds": time.perf_counter() - t0})
+        return 0
 
-    with tempfile.TemporaryDirectory() as tmp:
-        serve_launches, serve = phase_serve(torch, dev, tmp)
-    emit({"phase": "serve", "launches": serve_launches, **serve})
-
-    with tempfile.TemporaryDirectory() as tmp:
-        launches, train = phase_train(torch, dev, tmp)
-    emit({"phase": "train", "launches": launches, **train})
-
-    # Launches: the train path's run (this slice's main path), which runs
-    # all four; the serve phase's counts are in its own line.
+    # Launches on each kernel's main path, counted from 0 over that path's
+    # run: K1-K6 over the train phase's `cli train` (the serve phase's
+    # counts are in its own line), K7 over the conv phase's `cli train`
+    # under the opt-in, K8 over the conv phase's shoot-out.
+    csrc = "cova_tpu_torch/csrc/"
     meta = {
-        "roi_pool_fwd": ("cova_tpu_torch/csrc/roi_pool.cu",
-                         "cova_tpu/ops/roi_pool_pallas.py:215"),
-        "bn_relu_pool_fwd": ("cova_tpu_torch/csrc/bn_pool.cu",
-                             "cova_tpu/ops/bn_pool.py:75"),
-        "roi_pool_bwd": ("cova_tpu_torch/csrc/roi_pool.cu",
-                         "cova_tpu/ops/roi_pool_pallas.py:521"),
-        "bn_relu_pool_bwd": ("cova_tpu_torch/csrc/bn_pool.cu",
-                             "cova_tpu/ops/bn_pool.py:102"),
+        "roi_pool_fwd": ("roi_pool.cu", "roi_pool_pallas.py:215"),
+        "bn_relu_pool_fwd": ("bn_pool.cu", "bn_pool.py:75"),
+        "roi_pool_bwd": ("roi_pool.cu", "roi_pool_pallas.py:521"),
+        "bn_relu_pool_bwd": ("bn_pool.cu", "bn_pool.py:102"),
+        "conv3x3_fwd": ("conv3x3.cu", "conv3x3.py:55"),
+        "conv3x3_roll_fwd": ("conv3x3.cu", "conv3x3.py:92"),
     }
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": kernels[name]["max_abs_err"],
-         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
-         "bound_ms": kernels[name]["bound_ms"],
-         "bound_by": kernels[name]["bound_by"], "library_ms": None}
-        for name, (src, rep) in meta.items()
-    ]})
+    rows = []
+    for name, (src, rep) in meta.items():
+        need(launches[name] > 0, f"{name} was not launched on its main path")
+        k = kernels[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": csrc + src,
+            "replaces": "cova_tpu/ops/" + rep, "launches": launches[name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+        })
+    emit({"kernels": rows, "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 The package mirrors ``cova_tpu``'s module names so that each counterpart is
 easy to find, and it imports neither JAX nor anything of ``cova_tpu``. Its
 two hot ops, RoIPool and the fused stem BN+ReLU+max-pool, forward and
-backward, are CUDA kernels under ``csrc/`` built with ``nvcc`` at first use
-(``ops/_build.py``); each has a plain PyTorch version beside it, which is what
+backward, and the opt-in 3x3 conv (``COVA_CUDA_CONV=1``) are CUDA kernels
+under ``csrc/`` built with ``nvcc`` at first use (``ops/_build.py``); each
+has a plain PyTorch version beside it, which is what
 runs for tensors on the CPU.
 
     from cova_tpu_torch import Config, build_model

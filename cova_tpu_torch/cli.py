@@ -1,7 +1,10 @@
 """Command-line interface of the port: ``train``, ``eval`` and ``predict``.
 
 Counterpart of ``cova_tpu/cli.py`` with the same common flags, the same
-subcommands' artifacts and locations, plus ``--device``. ``export``,
+subcommands' artifacts and locations, plus ``--device``. ``--backbone``
+takes the whole registry of ``models.resnet.make_backbone``; ``train
+--init_checkpoint`` initialises the backbone from a torchvision state_dict
+and ``--decode_cache`` keeps decoded screenshots on disk. ``export``,
 ``visualize``, ``sweep`` and ``bench`` come with later slices.
 
     python -m cova_tpu_torch.cli train --synthetic 50 -e 5
@@ -24,7 +27,7 @@ import os
 import sys
 from typing import Optional
 
-from .config import CLASS_NAMES, N_FOLDS, Config
+from .config import BACKBONES, CLASS_NAMES, N_FOLDS, Config
 
 
 def _add_common_flags(p: argparse.ArgumentParser):
@@ -50,7 +53,8 @@ def _add_common_flags(p: argparse.ArgumentParser):
     p.add_argument("--split_dir", default="splits")
     p.add_argument("--output_dir", default="results_5-Fold_CV")
     p.add_argument("--img_height", type=int, default=1280)
-    p.add_argument("--backbone", default="resnet18_stem")
+    p.add_argument("--backbone", default="resnet18_stem",
+                   choices=list(BACKBONES))
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--num_devices", type=int, default=1,
@@ -60,14 +64,18 @@ def _add_common_flags(p: argparse.ArgumentParser):
     p.add_argument("--resume", action="store_true",
                    help="resume from the last checkpoint if present")
     p.add_argument("--init_checkpoint", default=None, metavar="PATH.pth",
-                   help="torchvision ResNet state_dict for the backbone "
-                        "(not ported yet: refused)")
+                   help="torchvision ResNet state_dict to initialise the "
+                        "backbone from (train only; the canonical file name "
+                        "is held to its sha256 pin, see "
+                        "utils/pretrained.py)")
     p.add_argument("--synthetic", type=int, default=0, metavar="N_PAGES",
                    help="use N synthetic pages instead of data_dir")
     p.add_argument("--synthetic_hard", action="store_true",
                    help="harder synthetic task (colour-matched distractors)")
     p.add_argument("--decode_cache", default="", metavar="DIR",
-                   help="decoded-screenshot cache (not ported yet: refused)")
+                   help="cache decoded screenshots as .npy under DIR so "
+                        "that later epochs and runs skip the PNG inflate "
+                        "(costs one decoded copy on disk)")
 
 
 def _cfg_from_args(args) -> Config:
@@ -130,14 +138,12 @@ def _set_numerics(cfg: Config) -> None:
 
 
 def _refuse_unported(cfg: Config, args, command: str) -> None:
-    if cfg.decode_cache:
-        raise SystemExit("--decode_cache is not ported to cova_tpu_torch yet")
     if cfg.num_devices != 1 or cfg.model_parallel != 1:
         raise SystemExit(f"cova_tpu_torch {command} runs on one device "
                          "(multi-GPU is not ported yet)")
-    if args.init_checkpoint:
-        raise SystemExit("--init_checkpoint (pretrained backbone) is not "
-                         "ported to cova_tpu_torch yet")
+    if args.synthetic_hard and command == "train":
+        raise SystemExit("train --synthetic_hard (with its oracle row) is "
+                         "not ported to cova_tpu_torch yet")
 
 
 def _load_datasets(cfg: Config, args):
@@ -179,7 +185,8 @@ def _load_datasets(cfg: Config, args):
     native_loader.ensure_built()
     return (*(
         WebDataset(cfg.data_dir, ids, cfg.use_additional_feat,
-                   img_size=cfg.img_height)
+                   img_size=cfg.img_height,
+                   decode_cache_dir=cfg.decode_cache or None)
         for ids in (train_ids, val_ids, test_ids)
     ), webpage_info, test_domains)
 
@@ -264,9 +271,9 @@ def cmd_train(args) -> int:
     cfg = _cfg_from_args(args)
     device = resolve_device(args.device)
     _refuse_unported(cfg, args, "train")
-    if args.synthetic_hard:
-        raise SystemExit("train --synthetic_hard (with its oracle row) is "
-                         "not ported to cova_tpu_torch yet")
+    if args.init_checkpoint and not os.path.isfile(args.init_checkpoint):
+        raise SystemExit(f"--init_checkpoint {args.init_checkpoint}: no "
+                         "such file")
     _set_numerics(cfg)
     train_ds, val_ds, test_ds, webpage_info, test_domains = _load_datasets(
         cfg, args
@@ -274,6 +281,11 @@ def cmd_train(args) -> int:
     cfg, state, train_p, val_p, test_p = _build(
         cfg, device, train_ds, val_ds, test_ds
     )
+    if args.init_checkpoint:
+        from .utils.pretrained import init_backbone_from_checkpoint
+
+        init_backbone_from_checkpoint(state.model, cfg.backbone,
+                                      args.init_checkpoint)
 
     os.makedirs(cfg.results_dir, exist_ok=True)
     log_file = cfg.log_file()
@@ -354,6 +366,7 @@ def cmd_predict(args) -> int:
         pred_ds = WebDataset(
             cfg.data_dir, args.page_ids, cfg.use_additional_feat,
             img_size=cfg.img_height,
+            decode_cache_dir=cfg.decode_cache or None,
         )
     else:
         pred_ds = _load_datasets(cfg, args)[2]

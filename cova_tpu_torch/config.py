@@ -26,6 +26,18 @@ DATASET_MAX_BOXES: int = 230
 N_FOLDS: int = 5
 
 
+# The backbone registry of ``models.resnet.make_backbone``, as
+# ``cova_tpu/models/resnet.py:364-385``: name -> (blocks per stage, stages
+# kept, Bottleneck blocks). ``resnet18_stem`` is the reference architecture.
+BACKBONES = {
+    "resnet18_stem": ((2, 2, 2, 2), 1, False),
+    "resnet18": ((2, 2, 2, 2), 4, False),
+    "resnet34_stem": ((3, 4, 6, 3), 1, False),
+    "resnet50_stem": ((3, 4, 6, 3), 1, True),
+    "resnet50": ((3, 4, 6, 3), 4, True),
+}
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 

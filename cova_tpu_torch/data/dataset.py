@@ -1,7 +1,7 @@
 """On-disk webpage dataset: screenshots + preorder bbox CSVs.
 
-Counterpart of ``cova_tpu/data/dataset.py`` without the decoded-screenshot
-cache (not ported yet; the CLI rejects ``--decode_cache``). Layout:
+Counterpart of ``cova_tpu/data/dataset.py``, with its opt-in
+decoded-screenshot cache (``data/decode_cache.py``). Layout:
 ``<root>/imgs/<id>.png``, ``<root>/bboxes/<id>.csv`` with rows
 ``x,y,w,h,label`` under a header, optional
 ``<root>/additional_features/<id>.csv``. Images are uint8 HWC; the device
@@ -10,6 +10,7 @@ normalizes them.
 
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import List, Optional, Sequence
 
@@ -51,11 +52,21 @@ class WebDataset:
         use_additional_feats: bool = False,
         img_size: Optional[int] = None,
         use_native: bool = True,
+        decode_cache_dir: Optional[str] = None,
     ):
         self.root = root
         self.ids: List[str] = [str(i) for i in page_ids]
         self.img_size = img_size
         self.use_native = use_native and native_loader.available()
+        # Opt-in decoded-screenshot cache: an explicit directory or
+        # COVA_DECODE_CACHE. ``image()`` caches the raw layout; the
+        # pipeline's batch decode takes its own layout-tagged handle.
+        self.decode_cache_dir = decode_cache_dir or os.environ.get(
+            "COVA_DECODE_CACHE"
+        )
+        self._raw_cache = self.decode_cache(
+            f"raw-{img_size}" if img_size is not None else "raw-orig"
+        )
         self.img_paths = [
             os.path.join(root, "imgs", f"{i}.png") for i in self.ids
         ]
@@ -94,20 +105,43 @@ class WebDataset:
             additional_feats=self.all_additional[index],
         )
 
+    def decode_cache(self, tag: str):
+        """A layout-tagged ``DecodeCache`` over this dataset's cache
+        directory, or None when caching is off. Entries live in a
+        subdirectory keyed by the resolved dataset root: page ids are
+        unique only within a dataset."""
+        from .decode_cache import DecodeCache
+
+        if not self.decode_cache_dir:
+            return None
+        root_key = hashlib.sha1(
+            os.path.realpath(self.root).encode()
+        ).hexdigest()[:12]
+        return DecodeCache(
+            os.path.join(self.decode_cache_dir, root_key), tag
+        )
+
     def image(self, index: int) -> np.ndarray:
-        """Decode the screenshot to uint8 [H, W, 3]."""
+        """Decode the screenshot to uint8 [H, W, 3] (cached if enabled)."""
+        if self._raw_cache is not None:
+            hit = self._raw_cache.get(self.ids[index], self.img_paths[index])
+            if hit is not None:
+                return np.array(hit)  # a writable copy out of the memmap
         if self.use_native and self.img_size is not None:
-            return native_loader.decode_png(
+            arr = native_loader.decode_png(
                 self.img_paths[index], self.img_size, self.img_size
             )
-        from PIL import Image
+        else:
+            from PIL import Image
 
-        with Image.open(self.img_paths[index]) as im:
-            arr = np.asarray(im.convert("RGB"), dtype=np.uint8)
-        if self.img_size is not None:
-            # The native path's geometry exactly (zero-pad / crop, no
-            # resampling), so inputs do not depend on which path ran.
-            arr = _pad_crop(arr, self.img_size)
+            with Image.open(self.img_paths[index]) as im:
+                arr = np.asarray(im.convert("RGB"), dtype=np.uint8)
+            if self.img_size is not None:
+                # The native path's geometry exactly (zero-pad / crop, no
+                # resampling), so inputs do not depend on which path ran.
+                arr = _pad_crop(arr, self.img_size)
+        if self._raw_cache is not None:
+            self._raw_cache.put(self.ids[index], arr, self.img_paths[index])
         return arr
 
 

@@ -5,7 +5,9 @@ builds padded pages (and decodes PNGs: PIL and libpng release the GIL), and
 a bounded queue keeps a couple of batches ready. Sampling and shuffling use
 numpy Generators keyed by (seed, epoch[, page index]), the same keys as the
 JAX package, so both packages yield byte-identical batches for one seed.
-Per-host sharding and the decoded-screenshot cache are not ported yet.
+With a decode cache (``data/decode_cache.py``) a batch's cache hits are
+copied from disk and only its misses are decoded, then stored. Per-host
+sharding comes with multi-GPU.
 """
 
 from __future__ import annotations
@@ -74,18 +76,43 @@ class DataPipeline:
             rec, self.pad_boxes, self.context_size, self.ds.n_additional_feat
         )
 
+    def _decode_batch(self, idxs, size: int) -> np.ndarray:
+        """uint8 images of one batch through the native decoder: cache hits
+        copied from disk, misses decoded in one call and then stored."""
+        from . import native_loader
+
+        s2d4 = size % 4 == 0
+        paths = [self.ds.img_paths[int(i)] for i in idxs]
+        cache = self.ds.decode_cache(f"{'s2d4' if s2d4 else 'raw'}-{size}")
+        if cache is None:
+            return native_loader.decode_png_batch(
+                paths, size, size, nthreads=self.num_threads, s2d4=s2d4
+            )
+        ids = [self.ds.ids[int(i)] for i in idxs]
+        hits = [cache.get(page_id, path) for page_id, path in zip(ids, paths)]
+        miss = [pos for pos, m in enumerate(hits) if m is None]
+        shape = (size // 4, size // 4, 48) if s2d4 else (size, size, 3)
+        imgs = np.empty((len(idxs), *shape), dtype=np.uint8)
+        if miss:
+            dec = native_loader.decode_png_batch(
+                [paths[p] for p in miss], size, size,
+                nthreads=self.num_threads, s2d4=s2d4,
+            )
+            for k, pos in enumerate(miss):
+                imgs[pos] = dec[k]
+                cache.put(ids[pos], dec[k], paths[pos])
+        for pos, m in enumerate(hits):
+            if m is not None:
+                imgs[pos] = m  # the memmap's only read
+        return imgs
+
     def _make_batch(self, epoch: int, idxs, pool) -> Batch:
         # Pages build on the pool while the native decoder (when built and
         # the dataset is disk-backed) decodes the whole batch in one call.
         pages = pool.map(lambda i: self._make_page(epoch, int(i)), idxs)
         size = getattr(self.ds, "img_size", None)
         if getattr(self.ds, "use_native", False) and size is not None:
-            from . import native_loader
-
-            imgs = native_loader.decode_png_batch(
-                [self.ds.img_paths[int(i)] for i in idxs], size, size,
-                nthreads=self.num_threads, s2d4=size % 4 == 0,
-            )
+            imgs = self._decode_batch(idxs, size)
         else:
             imgs = list(pool.map(lambda i: self.ds.image(int(i)), idxs))
         return collate(imgs, list(pages))

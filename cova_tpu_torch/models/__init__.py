@@ -1,1 +1,1 @@
-"""Models of the port: ``CoVA`` and its ``resnet18_stem`` backbone."""
+"""Models of the port: ``CoVA`` and its ResNet backbones."""

@@ -2,9 +2,10 @@
 
 Counterpart of ``cova_tpu/models/cova.py`` over padded batches:
 
-  * truncated ResNet-18 backbone (stride 4, 64 channels) -> RoIPool(3x3)
-    -> 576-dim visual feature per box, flattened channel-major as the
-    reference does;
+  * a ResNet backbone from ``models.resnet.make_backbone`` (by default the
+    truncated ResNet-18: stride 4, 64 channels) -> RoIPool(3x3) -> the
+    visual feature per box (576-dim by default), flattened channel-major
+    as the reference does;
   * bbox positional feature [x, y, w, h, aspect] -> Linear -> masked BN ->
     ReLU;
   * optional additional features through a masked BN;
@@ -20,7 +21,7 @@ Linear weights and biases (``cova_tpu/models/layers.py:24-29``) and
 ``he_normal`` for convs (``cova_tpu/models/resnet.py:31``).
 
 Module and parameter names are the reference's torch namespace
-(``convnet.{0,1,4}``, ``bbox_feat_encoder.{0,1}``, ``bn_additional_feat``,
+(``convnet.{0,1,4..7}``, ``bbox_feat_encoder.{0,1}``, ``bn_additional_feat``,
 ``gat.{W_i,W_j,attention_layer}``, ``decoder.{1,2,5}``), so a reference
 checkpoint, or one exported by ``cova export``, strict-loads with no
 permutation.
@@ -42,7 +43,7 @@ from torch import nn
 from ..ops.roi_pool import roi_pool
 from .gat import GraphAttention
 from .layers import MaskedBatchNorm
-from .resnet import ResNet18Stem, he_normal_
+from .resnet import he_normal_, make_backbone
 
 
 class CoVAOutput(NamedTuple):
@@ -82,17 +83,12 @@ class CoVA(nn.Module):
         compute_dtype: torch.dtype = torch.bfloat16,
     ):
         super().__init__()
-        if backbone != "resnet18_stem":
-            raise ValueError(
-                f"backbone {backbone!r} is not ported yet; the port serves "
-                "'resnet18_stem'"
-            )
         self.use_context = use_context
         self.bbox_hidden_dim = bbox_hidden_dim
         self.n_additional_feat = n_additional_feat
         self.roi_output_size = roi_output_size
         self.compute_dtype = compute_dtype
-        self.convnet = ResNet18Stem()
+        self.convnet = make_backbone(backbone)
         n_visual = self.convnet.output_channels * roi_output_size**2
         if bbox_hidden_dim > 0:
             self.bbox_feat_encoder = nn.Sequential(
@@ -124,7 +120,7 @@ class CoVA(nn.Module):
                 f"channels={images_u8.shape[-1]}"
             )
         x = images_u8.to(self.compute_dtype) / 255.0
-        fm = self.convnet(x)  # [B, H/4, W/4, C]
+        fm = self.convnet(x)  # [B, H/stride, W/stride, C]
         img_h = images_u8.shape[1] * (4 if images_u8.shape[-1] == 48 else 1)
         # The exact ratio, as the reference measures it (conv_H / img_H).
         spatial_scale = fm.shape[1] / img_h

@@ -11,10 +11,27 @@ buffer names are torch's (``weight``, ``bias``, ``running_mean``,
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
+
+# True while a forward is being re-run to recompute activations (remat):
+# the batch statistics are taken again, the running ones are left alone.
+_stats_frozen = False
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Inside, a training-mode ``MaskedBatchNorm`` normalizes with its batch
+    statistics and does not update its running statistics."""
+    global _stats_frozen
+    before, _stats_frozen = _stats_frozen, True
+    try:
+        yield
+    finally:
+        _stats_frozen = before
 
 
 class MaskedBatchNorm(nn.Module):
@@ -66,6 +83,18 @@ class MaskedBatchNorm(nn.Module):
             var = (xf * xf * m).sum(red) / cnt - mean * mean
         return mean, var.clamp(min=0.0), cnt
 
+    @torch.no_grad()
+    def _update_running(self, mean, var, cnt, mask) -> None:
+        # torch: the running update uses the unbiased variance. An
+        # all-padding batch has no statistics and skips the update.
+        unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+        upd = self.momentum * (
+            1.0 if mask is None else (mask.sum() > 0).float()
+        )
+        self.running_mean.mul_(1 - upd).add_(upd * mean)
+        self.running_var.mul_(1 - upd).add_(upd * unbiased)
+        self.num_batches_tracked.add_(1)
+
     def forward(
         self,
         x: torch.Tensor,
@@ -85,16 +114,8 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             xf = x.float()
             mean, var, cnt = self._batch_stats(xf, mask, g)
-            with torch.no_grad():
-                # torch: the running update uses the unbiased variance. An
-                # all-padding batch has no statistics and skips the update.
-                unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
-                upd = self.momentum * (
-                    1.0 if mask is None else (mask.sum() > 0).float()
-                )
-                self.running_mean.mul_(1 - upd).add_(upd * mean)
-                self.running_var.mul_(1 - upd).add_(upd * unbiased)
-                self.num_batches_tracked.add_(1)
+            if not _stats_frozen:
+                self._update_running(mean, var, cnt, mask)
         else:
             mean, var = self.running_mean, self.running_var
         scale = torch.rsqrt(var + self.eps) * self.weight.float()

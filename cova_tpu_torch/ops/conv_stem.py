@@ -9,9 +9,10 @@ Counterpart of ``cova_tpu/ops/conv_stem.py``. The reformulation is exact:
     output [B, H/4, W/4, 4*O], channel order (ey, ex, o) = s2d(2) of the
            [B, H/2, W/2, O] conv output.
 
-Tensors are NHWC at these functions' boundaries, as in the JAX package;
-the conv itself runs as ``F.conv2d`` on channels-last views (the JAX package
-leaves it to XLA too: its Pallas 3x3 conv is opt-in and off by default).
+Tensors are NHWC at these functions' boundaries, as in the JAX package. The
+3x3 conv goes through ``ops.conv3x3.conv3x3_auto``: ``F.conv2d`` on
+channels-last views by default, the hand-written CUDA kernel with
+``COVA_CUDA_CONV=1`` (the JAX package's gate is ``COVA_PALLAS_CONV``).
 """
 
 from __future__ import annotations
@@ -109,9 +110,11 @@ def stem_conv_s2d(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     weight: [O, 3, 7, 7]. Returns [B, H/4, W/4, 4*O] in x.dtype, channel
     order (ey, ex, o).
     """
+    from .conv3x3 import conv3x3_auto  # imports nhwc_conv2d from here
+
     cin = weight.shape[1]
     xs = x if x.shape[-1] == _F * _F * cin else s2d4(x)
-    return nhwc_conv2d(xs, stem_kernel_s2d(weight), padding=1)
+    return conv3x3_auto(xs, stem_kernel_s2d(weight).permute(2, 3, 1, 0))
 
 
 def stem_pool_s2d(ys: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..data.batching import bucket_batch, pad_batch
+from ..data.device_prefetch import device_prefetch
 from .steps import forward_step
 
 
@@ -61,14 +62,20 @@ def predict_pages(
         s.update({c: int(n) for c, n in zip(class_names, counts)})
         return s
 
-    for ids, batch in pipeline.epoch(0):
+    def padded_batches():
+        for ids, batch in pipeline.epoch(0):
+            padded, _ = pad_batch(batch, eval_bs)
+            if box_buckets:
+                padded = bucket_batch(padded, tuple(box_buckets))
+            yield (ids, batch), padded
+
+    device = next(model.parameters()).device
+    for (ids, batch), _, on_device in device_prefetch(padded_batches(),
+                                                      device):
         if max_pages is not None and n_done >= max_pages:
             break
         real_b = batch.batch_size
-        padded, _ = pad_batch(batch, eval_bs)
-        if box_buckets:
-            padded = bucket_batch(padded, tuple(box_buckets))
-        out = forward_step(model, padded)
+        out = forward_step(model, on_device)
         n_batches += 1
         logits = out.logits.cpu().numpy()  # [B, P', C] float32
         probs = _softmax(logits)

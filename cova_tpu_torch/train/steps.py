@@ -26,7 +26,10 @@ from ..data.batching import Batch
 
 
 def _to_device(a, device) -> torch.Tensor:
-    """A host array on ``device``: pinned and non-blocking to a GPU."""
+    """A host array on ``device``: pinned and non-blocking to a GPU. A
+    tensor (a prefetched batch's) is taken as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     t = torch.from_numpy(a)
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
@@ -34,7 +37,8 @@ def _to_device(a, device) -> torch.Tensor:
 
 
 def batch_to_device(batch: Batch, device) -> dict:
-    """The model's keyword inputs for a host ``Batch``, on ``device``."""
+    """The model's keyword inputs for a ``Batch`` (host arrays, or tensors
+    from ``data.device_prefetch``), on ``device``."""
     return dict(
         images_u8=_to_device(batch.images, device),
         boxes=_to_device(batch.boxes, device),

@@ -10,7 +10,9 @@ Counterpart of ``cova_tpu/train/trainer.py`` (the reference's
   * each epoch's dropout masks come from a ``torch.Generator`` keyed by
     (seed, epoch), so ``--resume`` continues the exact stream of an
     uninterrupted run;
-  * checkpoints carry the optimizer state (``utils/checkpoint.py``).
+  * checkpoints carry the optimizer state (``utils/checkpoint.py``);
+  * batches reach the device through ``data.device_prefetch``: the next
+    batch's copy runs on a side stream while the current step computes.
 
 Eval runs one batch per call. The JAX package's mesh placement, RSS
 watchdog, VMEM fallback and eval chunking have no counterpart here.
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from ..data.batching import bucket_batch, pad_batch
+from ..data.device_prefetch import device_prefetch
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import MetricsLogger, print_and_log
 from .steps import TrainState, eval_step, train_step
@@ -52,12 +55,16 @@ def run_eval(
     start = time.time()
     eval_bs = pipeline.batch_size
     rows = []
-    for ids, batch in pipeline.epoch(0):
-        b = batch.batch_size
-        padded = bucket_batch(pad_batch(batch, eval_bs)[0], box_buckets)
-        correct = eval_step(model, padded, n_classes, k)["correct"]
+    device = next(model.parameters()).device
+    padded = (
+        (ids[: batch.batch_size],
+         bucket_batch(pad_batch(batch, eval_bs)[0], box_buckets))
+        for ids, batch in pipeline.epoch(0)
+    )
+    for ids, _, on_device in device_prefetch(padded, device):
+        correct = eval_step(model, on_device, n_classes, k)["correct"]
         c_np = correct.cpu().numpy().astype(np.int32)
-        for i, page_id in enumerate(ids[:b]):
+        for i, page_id in enumerate(ids):
             rows.append([int(page_id)] + list(c_np[i]))
     if not rows:
         raise ValueError(
@@ -122,11 +129,13 @@ def fit(
         gen = dropout_generator(cfg.seed, epoch, state.device)
         start = time.time()
         step_metrics = []
-        for _, batch in train_pipeline.epoch(epoch):
-            batch = bucket_batch(
-                pad_batch(batch, train_pipeline.batch_size)[0], buckets
-            )
-            m = train_step(state, batch, gen)
+        padded = (
+            (ids, bucket_batch(
+                pad_batch(batch, train_pipeline.batch_size)[0], buckets))
+            for ids, batch in train_pipeline.epoch(epoch)
+        )
+        for _, _, on_device in device_prefetch(padded, state.device):
+            m = train_step(state, on_device, gen)
             step_metrics.append(torch.stack(
                 [m["loss_sum"], m["n_correct"], m["n_boxes"]]))
         # One device-to-host fetch per epoch.

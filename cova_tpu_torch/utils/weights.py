@@ -3,8 +3,9 @@ state_dict, and loading reference-format ``.pth`` files.
 
 ``state_dict_from_jax`` is a JAX-free copy of
 ``cova_tpu/utils/torch_port.py::export_cova_state_dict`` (and its
-``_visual_row_perm``): it takes the Flax ``params`` and ``batch_stats``
-trees as numpy arrays (``jax.device_get`` them first) and returns the
+``_visual_row_perm``), extended to every backbone of the registry by the
+inverse of ``port_resnet_backbone`` there: it takes the Flax ``params`` and
+``batch_stats`` trees as numpy arrays (``jax.device_get`` them first) and returns the
 reference-namespace ``state_dict`` that ``models.cova.CoVA`` strict-loads.
 
 Layout conversions: Flax conv [kh, kw, I, O] -> torch [O, I, kh, kw]; Flax
@@ -22,6 +23,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from ..config import BACKBONES
 
 
 def _visual_row_perm(n_feat: int, roi: int = 3, channels: int = 64):
@@ -73,25 +76,37 @@ def state_dict_from_jax(
         sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
     cp, cs = params["convnet"], batch_stats["convnet"]
-    expect = {"Conv_0", "BatchNorm_0", "BasicBlock_0", "BasicBlock_1"}
+    stage_sizes, n_stages, bottleneck = BACKBONES[cfg.backbone]
+    block_name = "Bottleneck" if bottleneck else "BasicBlock"
+    n_blocks = sum(stage_sizes[:n_stages])
+    expect = {"Conv_0", "BatchNorm_0",
+              *(f"{block_name}_{i}" for i in range(n_blocks))}
     if set(cp.keys()) != expect:
         raise ValueError(
-            "state_dict_from_jax handles the truncated ResNet-18 stem only; "
-            f"got convnet tree {sorted(cp.keys())}"
+            f"state_dict_from_jax: backbone {cfg.backbone!r} expects the "
+            f"convnet tree {sorted(expect)}; got {sorted(cp.keys())}"
         )
     put_conv("convnet.0.weight", cp["Conv_0"]["kernel"])
     put_bn("convnet.1", cp["BatchNorm_0"]["BatchNorm_0"],
            cs["BatchNorm_0"]["BatchNorm_0"])
-    for blk in (0, 1):
-        bp, bs = cp[f"BasicBlock_{blk}"], cs[f"BasicBlock_{blk}"]
-        for ci, (cname, bname) in enumerate(
-            [("conv1", "bn1"), ("conv2", "bn2")]
-        ):
-            put_conv(f"convnet.4.{blk}.{cname}.weight",
-                     bp[f"Conv_{ci}"]["kernel"])
-            put_bn(f"convnet.4.{blk}.{bname}",
-                   bp[f"BatchNorm_{ci}"]["BatchNorm_0"],
-                   bs[f"BatchNorm_{ci}"]["BatchNorm_0"])
+    # Flax auto-names: Conv_i/BatchNorm_i are conv{i+1}/bn{i+1}; the last
+    # pair of a block with a projection shortcut is downsample.{0,1}.
+    n_main = 3 if bottleneck else 2
+    bi = 0
+    for stage in range(n_stages):
+        for blk in range(stage_sizes[stage]):
+            bp, bs = cp[f"{block_name}_{bi}"], cs[f"{block_name}_{bi}"]
+            prefix = f"convnet.{4 + stage}.{blk}"
+            names = [(f"conv{i + 1}", f"bn{i + 1}") for i in range(n_main)]
+            if f"Conv_{n_main}" in bp:
+                names.append(("downsample.0", "downsample.1"))
+            for ci, (cname, bname) in enumerate(names):
+                put_conv(f"{prefix}.{cname}.weight",
+                         bp[f"Conv_{ci}"]["kernel"])
+                put_bn(f"{prefix}.{bname}",
+                       bp[f"BatchNorm_{ci}"]["BatchNorm_0"],
+                       bs[f"BatchNorm_{ci}"]["BatchNorm_0"])
+            bi += 1
 
     if cfg.bbox_hidden_dim > 0:
         put_linear("bbox_feat_encoder.0", params["bbox_linear"]["Dense_0"])

@@ -4,6 +4,8 @@ PyTorch port goes.
 
     python3 scripts/profile_torch_serve.py          # serving, on a GPU
     python3 scripts/profile_torch_serve.py --train  # one train step
+    ... --train --prefetch   # batches through data.device_prefetch
+    ... [--train] --conv     # with COVA_CUDA_CONV=1 (the hand-written conv)
 
 Builds the flagship model (resnet18_stem, 1280^2, P = 232, -cs 12, -hd 384,
 bf16). Serving: the seeded random weights of ``chip_smoke.py`` and one batch
@@ -11,7 +13,9 @@ of B = 10 synthetic pages, tracing ``forward_step`` (host copy included) over
 10 batches. Train: the model as ``build_model`` initialises it and
 ``chip_smoke.py``'s fixed train batch (B = 5, BG subsampled), tracing
 ``train_step`` (host copy, forward, backward and the Adam update) over 10
-steps. Prints one JSON line: the window's wall time per batch, the device's
+steps; with ``--prefetch`` the step takes its batch from the device
+prefetcher, as the trainer does, instead of pinning and copying it itself.
+Prints one JSON line: the window's wall time per batch, the device's
 busy time (union of kernel and copy intervals), its idle share, device time
 by category, the top kernels, the top aten ops with their input shapes, and
 the host ops with the most self CPU time.
@@ -31,6 +35,8 @@ CATEGORIES = (  # first match wins
     ("bn_relu_pool (K5)", ("bn_relu_pool_fwd",)),
     ("roi_pool backward (K3)", ("roi_pool_bwd",)),
     ("bn_relu_pool backward (K6)", ("bn_relu_pool_bwd",)),
+    ("conv3x3_roll (K8)", ("conv3x3_roll_fwd",)),
+    ("conv3x3 (K7)", ("conv3x3_fwd",)),
     ("convolution", ("conv", "cudnn", "implicit", "xmma", "fprop", "dgrad",
                      "wgrad")),
     ("matmul", ("gemm", "cutlass", "cublas", "splitk")),
@@ -55,6 +61,9 @@ def main() -> int:
         print("profile_torch_serve: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     train = "--train" in sys.argv[1:]
+    prefetch = "--prefetch" in sys.argv[1:]
+    if "--conv" in sys.argv[1:]:
+        os.environ["COVA_CUDA_CONV"] = "1"
     sys.path.insert(0, ROOT)
     import chip_smoke
     from cova_tpu_torch.config import Config
@@ -76,8 +85,18 @@ def main() -> int:
         batch = chip_smoke.fixed_train_batch(cfg)
         gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
 
-        def run():
-            train_step(state, batch, gen)
+        if prefetch:
+            import itertools
+
+            from cova_tpu_torch.data.device_prefetch import device_prefetch
+
+            fed = device_prefetch(itertools.repeat((None, batch)), dev)
+
+            def run():
+                train_step(state, next(fed)[2], gen)
+        else:
+            def run():
+                train_step(state, batch, gen)
     else:
         b = chip_smoke.B
         model = build_model(cfg, device="cpu")
@@ -142,6 +161,8 @@ def main() -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "mode": "train_step" if train else "serve",
+        "prefetch": prefetch,
+        "cuda_conv": os.environ.get("COVA_CUDA_CONV") == "1",
         "batch": b, "P": chip_smoke.P, "reps": reps,
         "wall_ms_per_batch": wall_ms / reps,
         "device_busy_ms_per_batch": busy_us / 1e3 / reps,

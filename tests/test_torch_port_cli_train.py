@@ -109,10 +109,10 @@ def test_eval_and_predict_use_the_best_checkpoint(trained, tmp_path,
     assert len(os.listdir(preds)) == 3
 
 
-@pytest.mark.parametrize("flags", [["--init_checkpoint", "r18.pth"],
+@pytest.mark.parametrize("flags", [["--model_parallel", "2"],
                                    ["--synthetic_hard"],
                                    ["--num_devices", "2"],
-                                   ["--decode_cache", "dc"]])
+                                   ["--num_devices", "0"]])
 def test_train_refuses_what_is_not_ported(tmp_path, flags):
     with pytest.raises(SystemExit) as e:
         port_main(["train", *SMALL, *PORT, "-e", "1", *flags,

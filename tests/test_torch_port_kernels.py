@@ -15,6 +15,10 @@ as its plain version does. Its d(scale)/d(shift) are sums over the whole
 map in another order: rtol 1e-4, and atol 1e-4 of the largest of them
 (f32 sums of up to a million terms). The bf16 inputs sit on a coarse grid,
 so ties are common and the tie rules run (see the notes in ``csrc/``).
+
+The 3x3 conv kernels sum their nine products in another order than the
+plain version and round once: bf16 within 2^-7 of the largest output, f32
+within 1e-5 of it.
 """
 
 import numpy as np
@@ -27,6 +31,12 @@ from cova_tpu_torch.ops.bn_pool import (
     bn_relu_pool_s2d_backward_reference,
     bn_relu_pool_s2d_plain,
     bn_relu_pool_s2d_reference,
+)
+from cova_tpu_torch.ops.conv3x3 import (
+    conv3x3,
+    conv3x3_plain,
+    conv3x3_reference,
+    conv3x3_roll,
 )
 from cova_tpu_torch.ops.roi_pool import (
     roi_pool,
@@ -188,3 +198,52 @@ def test_autograd_through_the_kernels_equals_the_plain_pairs(cuda, dtype):
     for a, b in zip(k[1:], p[1:]):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,o", [((2, 13, 37, 48), 256),
+                                     ((2, 13, 37, 256), 48),
+                                     ((1, 9, 30, 64), 64),
+                                     ((1, 40, 31, 128), 128)])
+def test_conv3x3_kernels_match_plain(cuda, dtype, shape, o):
+    """Both schedules at ragged sizes (tiles cut at the right and bottom
+    edges, C and O chunked), and dx through the kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(3, 3, c, o, generator=gen, device=cuda) * (
+        2.0 / (9 * c)) ** 0.5
+    want = conv3x3_reference(x, k)
+    tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * float(
+        want.float().abs().max())
+    n7, n8 = conv3x3.launches, conv3x3_roll.launches
+    for fn in (conv3x3, conv3x3_roll):
+        got = fn(x, k)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape
+        assert float((got.float() - want.float()).abs().max()) <= tol
+    assert (conv3x3.launches, conv3x3_roll.launches) == (n7 + 1, n8 + 1)
+    g = torch.randn(want.shape, generator=gen, device=cuda).to(dtype)
+    grads = []
+    for fn in (conv3x3, conv3x3_plain):
+        xg, kg = x.clone().requires_grad_(), k.clone().requires_grad_()
+        grads.append(torch.autograd.grad(fn(xg, kg), (xg, kg), g))
+    assert conv3x3.launches == n7 + 3  # forward and dx; dW is a library conv
+    dx_tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * float(
+        grads[1][0].float().abs().max())
+    assert float((grads[0][0].float() - grads[1][0].float()).abs().max()
+                 ) <= dx_tol
+    torch.testing.assert_close(grads[0][1], grads[1][1], rtol=2e-2,
+                               atol=2e-2 * float(grads[1][1].abs().max()))
+
+
+@pytest.mark.cuda
+def test_conv3x3_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 8, 8, 24, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        conv3x3(x, torch.zeros(3, 3, 24, 16, device=cuda))
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        conv3x3(x[..., :16].half(), torch.zeros(3, 3, 16, 16, device=cuda))
+    with pytest.raises(ValueError, match="need x"):
+        conv3x3_roll(x[..., :16], torch.zeros(3, 3, 32, 16, device=cuda))

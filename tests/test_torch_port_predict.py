@@ -97,7 +97,27 @@ def test_port_imports_no_jax_and_nothing_of_cova_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 20, r.stdout  # every module was imported
+    assert n_modules >= 34, r.stdout  # every module was imported
+
+
+def test_port_sources_name_no_jax_import():
+    """No file of the port, and not ``chip_smoke.py``, holds an import of
+    ``jax`` or of the JAX package (docstrings may name them)."""
+    import re
+
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|cova_tpu)\b",
+        re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "cova_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 30
+    for mod in ("ops/conv3x3.py", "utils/pretrained.py",
+                "data/decode_cache.py", "data/device_prefetch.py"):
+        assert os.path.join(REPO, "cova_tpu_torch", mod) in files
+    for path in files:
+        with open(path) as f:
+            assert not pat.search(f.read()), path
 
 
 def test_default_device_refuses_to_run_without_cuda(weights, tmp_path):
@@ -111,7 +131,7 @@ def test_default_device_refuses_to_run_without_cuda(weights, tmp_path):
     assert not out.exists()  # nothing ran on the CPU
 
 
-@pytest.mark.parametrize("flags", [["--decode_cache", "dc"],
+@pytest.mark.parametrize("flags", [["--model_parallel", "2"],
                                    ["--num_devices", "2"]])
 def test_unported_options_are_refused(weights, tmp_path, flags):
     with pytest.raises(SystemExit) as e:
