@@ -15,7 +15,8 @@ of B = 10 synthetic pages, tracing ``forward_step`` (host copy included) over
 ``train_step`` (host copy, forward, backward and the Adam update) over 10
 steps; with ``--prefetch`` the step takes its batch from the device
 prefetcher, as the trainer does, instead of pinning and copying it itself.
-Prints one JSON line: the window's wall time per batch, the device's
+Prints one JSON line: the card (``nvidia-smi`` name and power limit), the
+window's wall time per batch, the device's
 busy time (union of kernel and copy intervals), its idle share, device time
 by category, the top kernels, the top aten ops with their input shapes, and
 the host ops with the most self CPU time.
@@ -26,6 +27,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import subprocess
 import sys
 import time
 
@@ -158,8 +160,13 @@ def main() -> int:
         (a for a in prof.key_averages() if a.self_cpu_time_total > 0),
         key=lambda a: -a.self_cpu_time_total,
     )[:12]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": smi[0] if smi else None,
         "mode": "train_step" if train else "serve",
         "prefetch": prefetch,
         "cuda_conv": os.environ.get("COVA_CUDA_CONV") == "1",

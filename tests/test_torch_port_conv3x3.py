@@ -141,15 +141,18 @@ def test_bf16_rounds_once(shape, o):
 
 
 def test_chunk_choice_and_refused_shapes():
-    """The channel chunks a block holds, and what the wrapper refuses
+    """The channel chunks of the launch plan, and what the wrapper refuses
     before any launch (checked on the CPU: no kernel is reached)."""
-    assert pconv._chunk(48, pconv._C_CHUNKS[torch.bfloat16]) == 48
-    assert pconv._chunk(512, pconv._C_CHUNKS[torch.bfloat16]) == 64
-    assert pconv._chunk(48, pconv._C_CHUNKS[torch.float32]) == 16
-    assert pconv._chunk(256, pconv._O_CHUNKS) == 64
+    bf, f32 = torch.bfloat16, torch.float32
+    plan = pconv.launch_plan
+    assert plan("conv3x3", bf, 1, 8, 8, 48, 256).kc == 48
+    assert plan("conv3x3", bf, 1, 8, 8, 512, 64).kc == 64
+    assert plan("conv3x3", f32, 1, 8, 8, 48, 256).kc == 16
+    assert plan("conv3x3", f32, 1, 8, 8, 48, 256).oc == 64
+    assert plan("conv3x3_roll", bf, 1, 8, 8, 64, 256).oc == 64
+    assert plan("conv3x3_roll", bf, 1, 8, 8, 128, 256).oc == 32  # streamed
     with pytest.raises(ValueError, match="multiple of 16"):
-        pconv._chunk(24, pconv._O_CHUNKS)
+        plan("conv3x3", bf, 1, 8, 8, 16, 24)
     x, k = _operands((1, 4, 4, 16), 16)
     with pytest.raises(ValueError, match="unsupported devices"):
-        pconv._launch(torch.from_numpy(x), torch.from_numpy(k),
-                      pconv._FWD_FNS, "conv3x3")
+        pconv._launch(torch.from_numpy(x), torch.from_numpy(k), "conv3x3")

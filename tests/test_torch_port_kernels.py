@@ -18,7 +18,10 @@ so ties are common and the tie rules run (see the notes in ``csrc/``).
 
 The 3x3 conv kernels sum their nine products in another order than the
 plain version and round once: bf16 within 2^-7 of the largest output, f32
-within 1e-5 of it.
+within 1e-5 of it. The bf16 kernels (TMA ring, wgmma) have two modes, chosen
+by shape: weights that stay in shared memory (C in one chunk) and weights
+streamed with the input chunks (C of 128 and more); the shapes below cross
+their tile edges (8, 16 and 64 pixels) and take both modes.
 """
 
 import numpy as np
@@ -205,10 +208,18 @@ def test_autograd_through_the_kernels_equals_the_plain_pairs(cuda, dtype):
 @pytest.mark.parametrize("shape,o", [((2, 13, 37, 48), 256),
                                      ((2, 13, 37, 256), 48),
                                      ((1, 9, 30, 64), 64),
-                                     ((1, 40, 31, 128), 128)])
+                                     ((1, 40, 31, 128), 128),
+                                     ((1, 5, 1, 16), 16),
+                                     ((3, 11, 7, 32), 64),
+                                     ((1, 17, 63, 64), 64),
+                                     ((2, 3, 64, 16), 32),
+                                     ((1, 33, 65, 48), 64),
+                                     ((1, 18, 129, 64), 16),
+                                     ((3, 20, 24, 512), 512)])
 def test_conv3x3_kernels_match_plain(cuda, dtype, shape, o):
     """Both schedules at ragged sizes (tiles cut at the right and bottom
-    edges, C and O chunked), and dx through the kernel."""
+    edges, C and O chunked, stationary and streamed weights), and dx
+    through the kernel."""
     gen = torch.Generator(device=cuda).manual_seed(11)
     c = shape[-1]
     x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
@@ -247,3 +258,21 @@ def test_conv3x3_kernel_rejects_what_it_does_not_take(cuda):
         conv3x3(x[..., :16].half(), torch.zeros(3, 3, 16, 16, device=cuda))
     with pytest.raises(ValueError, match="need x"):
         conv3x3_roll(x[..., :16], torch.zeros(3, 3, 32, 16, device=cuda))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        conv3x3_roll(x.bfloat16(), torch.zeros(3, 3, 24, 16, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", [conv3x3, conv3x3_roll])
+def test_conv3x3_bf16_takes_views_and_f32_weights(cuda, fn):
+    """A non-contiguous input and f32 weights (cast and transposed by the
+    wrapper) give what the plain version gives on the same operands."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn(2, 64, 19, 21, generator=gen, device=cuda).to(
+        torch.bfloat16).permute(0, 2, 3, 1)  # an NCHW tensor seen as NHWC
+    k = torch.randn(3, 3, 64, 64, generator=gen, device=cuda) * 0.06
+    want = conv3x3_reference(x, k)
+    got = fn(x, k)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= 2.0 ** -7 * float(
+        want.float().abs().max())
