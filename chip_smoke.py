@@ -16,10 +16,18 @@ Phases, each printing one JSON line:
    (B = 10 pages of 1280^2, P = 232 boxes from synthetic pages with padded
    rows, bf16; roi_pool in f32 too) and must be bit-exact. The backward
    kernels run at the train batch (B = 5, P = 232) on bf16 inputs rounded
-   to a coarse grid, so ties are common and the tie rules run (roi_pool in
-   f32 too): dfm and dys must be bit-exact; d(scale)/d(shift), f32 sums over
-   the whole map in another order, within rtol 1e-4 plus 1e-4 of their
-   largest value.
+   to a coarse grid, so ties are common and the tie rules run (roi_pool and
+   bn_relu_pool in f32 too): dfm and dys must be bit-exact; d(scale)/
+   d(shift), f32 sums over the whole map in another order, within rtol 1e-4
+   plus 1e-4 of their largest value. The RoIPool forward (K1) and the stem
+   pool backward (K6) are also held, bit-exact, at ragged shapes in bf16
+   and f32 (ROI_RAGGED, BN_RAGGED), and timed ten times each in a row,
+   with every timing, the spread, the achieved GB/s and the bound's share
+   of the time; K1's line adds how often its bins re-read a covered pixel,
+   its largest bin, and the time of the bin bounds by their kernel (K3's
+   first launch, on the rule K1 applies in its own kernel; held bit for bit
+   against ``roi_bounds`` at every shape) and by the plain PyTorch chain. The build line lists both kernels'
+   registers and spills.
 4. serve: ``cova_tpu_torch.cli.main(["predict", ...])`` at full width (1280^2,
    P = 232, -cs 12, -hd 384, bf16) with a randomly initialised model from a
    seeded ``torch.Generator``, with every kernel's launch count set to 0
@@ -71,7 +79,8 @@ The train phase also feeds batches through the device prefetcher and holds
 them against the host batches byte for byte.
 
 (Phases run in the order 1-3, 6, 4, 5, 7, 8.) Then it prints the kernels'
-summary line, the ``nvidia-smi`` line, and, last,
+summary line (one row per TPU kernel, K1-K8), the ``nvidia-smi`` line, and,
+last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without a GPU,
 or outside the repo, it exits non-zero before printing any result.
 """
@@ -182,25 +191,161 @@ def tied(torch, gen, shape, dtype, dev, levels):
     return ((x * levels).round() / levels).to(dtype)
 
 
+# Timings of the redesigned K1 and K6, one after another in one call.
+TIMING_RUNS = 10
+
+
+def timings(torch, fn, reps: int, warmup: int = 3):
+    """TIMING_RUNS timings of ``reps`` launches each (CUDA events, ms per
+    launch): their median, all of them in the order taken, and their spread
+    (max - min)."""
+    ms = [cuda_ms(torch, fn, reps=reps, warmup=warmup if k == 0 else 1)
+          for k in range(TIMING_RUNS)]
+    return dict(ms=sorted(ms)[len(ms) // 2], ms_runs=ms,
+                ms_spread=max(ms) - min(ms))
+
+
+def roi_bins_px(torch, boxes, mask, h, w, out_h=3, out_w=3):
+    """Pixel counts of every bin, [B, P, out_h, out_w], and the pixels the
+    forward kernel reads for them: each bin's edge rows and pyramid chunks
+    (``ops/roi_pool.py:bin_rows``) times its width."""
+    from cova_tpu_torch.ops.roi_pool import bin_rows, roi_bounds
+
+    bd = roi_bounds(boxes, mask, 0.25, out_h, out_w, h, w).long()
+    ylo, yhi, xlo, xhi = bd.split([out_h, out_h, out_w, out_w], -1)
+    rows = torch.tensor([
+        sum(e - s for s, e in bin_rows(lo, hi, h)) if hi > lo else 0
+        for lo, hi in zip(ylo.flatten().tolist(), yhi.flatten().tolist())
+    ], device=bd.device).view_as(ylo)
+    width = (xhi - xlo).clamp(min=0)[..., None, :]
+    return (yhi - ylo).clamp(min=0)[..., :, None] * width, int(
+        (rows[..., :, None] * width).sum())
+
+
+# RoIPool forward (K1) checks away from the flagship shape: (B, H, W, C, P,
+# out_h, out_w). H and W that are no multiple of the pyramid's 8-row chunk,
+# or exactly one chunk; C of 6 and 130, where the kernel reads pairs of
+# channels instead of 16 bytes; out_h != out_w, one bin and 32 bins. Every
+# case's boxes include a whole-map box, boxes whose bins start and end on
+# chunk boundaries, boxes with bins of one row, and boxes beyond the image;
+# its last image has every box masked.
+ROI_RAGGED = ((2, 37, 29, 64, 40, 3, 3), (2, 13, 50, 6, 20, 2, 4),
+              (2, 9, 17, 130, 16, 1, 1), (2, 8, 8, 64, 12, 4, 8),
+              (3, 24, 40, 16, 30, 3, 3), (2, 1, 12, 64, 8, 3, 3))
+# Fused BN+ReLU+pool backward (K6) checks: (B, U, V, O). U and V of 1, and
+# one below and one above the kernel's tiles (8 x 16 in bf16, 8 x 8 in
+# f32); O of 2 and 6, where the kernel copies pairs of channels, and 64 and
+# 512, where it splits the channels into chunks.
+BN_RAGGED = ((1, 1, 1, 2), (2, 7, 9, 64), (1, 9, 7, 6), (2, 9, 1, 64),
+             (1, 1, 9, 512), (1, 17, 15, 64), (2, 7, 7, 512),
+             (1, 9, 17, 64), (2, 7, 15, 6), (1, 1, 33, 64))
+
+
+def ragged_boxes(torch, gen, b, p, h, w, dev):
+    """Random boxes in image coordinates (4x the map), some reaching past
+    it, with the special boxes of ROI_RAGGED's note first."""
+    img_h, img_w = 4 * h, 4 * w
+    x1 = torch.rand(b, p, generator=gen, device=dev) * (img_w + 8) - 8
+    y1 = torch.rand(b, p, generator=gen, device=dev) * (img_h + 8) - 8
+    x2 = x1 + torch.rand(b, p, generator=gen, device=dev) * (img_w + 8 - x1)
+    y2 = y1 + torch.rand(b, p, generator=gen, device=dev) * (img_h + 8 - y1)
+    boxes = torch.stack([x1, y1, x2, y2], -1)
+    special = [(0, 0, img_w, img_h),  # the whole map
+               (0, 32, img_w - 1, 4 * 24 - 1),  # rows 8 .. 23: chunk edges
+               (4, 4 * 16, 4 * 9, 4 * 17 - 1),  # one chunk, rows 16 .. 16
+               (8, 2, 40, 12)]  # bins of one row
+    for k, box in enumerate(special[:p]):
+        boxes[:, k] = torch.tensor(box, dtype=torch.float32, device=dev)
+    mask = torch.rand(b, p, generator=gen, device=dev) < 0.8
+    mask[:, 0] = True
+    mask[-1] = False  # one page that is all padding
+    return boxes, mask
+
+
+def ptxas_report(log: str, kernels):
+    """Registers and spill bytes of the named kernels from ptxas -v, keyed
+    by name and template arguments (f: float, 13__nv_bfloat16: bf16)."""
+    import re
+
+    rows, name = {}, None
+    alt = "|".join(kernels)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(" + alt + r")I(\w+?)E",
+                      line)
+        if m:
+            args = m.group(2).replace("13__nv_bfloat16", "bf16").replace(
+                "Li", ",").replace("f,", "f32,").strip(",")
+            name = f"{m.group(1)}<{args}>"
+            rows[name] = {}
+        elif name and "spill stores" in line:
+            n = re.findall(r"(\d+) bytes", line)
+            rows[name].update(stack=int(n[0]), spill_stores=int(n[1]),
+                              spill_loads=int(n[2]))
+        elif name and "Used" in line and "registers" in line:
+            rows[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                    line).group(1))
+            name = None
+    return rows
+
+
 def phase_kernels(torch, dev):
     from cova_tpu_torch.ops.bn_pool import (
         bn_relu_pool_s2d,
         bn_relu_pool_s2d_backward,
         bn_relu_pool_s2d_backward_reference,
         bn_relu_pool_s2d_reference,
+        bwd_plan,
     )
     from cova_tpu_torch.ops.roi_pool import (
+        roi_bounds,
         roi_pool,
         roi_pool_backward,
         roi_pool_backward_reference,
+        roi_pool_bounds,
+        roi_pool_plan,
         roi_pool_reference,
     )
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    checks = {}
+
+    def check_bounds(boxes, mask, oh, ow, h, w, tag):
+        """The bounds kernel (K3's first launch) equals roi_bounds."""
+        args = (boxes, mask, 0.25, oh, ow, h, w)
+        need(torch.equal(roi_pool_bounds(*args), roi_bounds(*args)),
+             f"{tag}: the bounds kernel differs from roi_bounds")
+        return args
+
+    # K1 away from the flagship shape, bit-exact.
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, h, w, c, p, oh, ow in ROI_RAGGED:
+            fm = torch.randn(b, h, w, c, generator=gen, device=dev).to(dtype)
+            boxes, mask = ragged_boxes(torch, gen, b, p, h, w, dev)
+            args = (fm, boxes, mask, 0.25, oh, ow)
+            tag = f"roi_pool_fwd_{b}x{h}x{w}x{c}_P{p}_{oh}x{ow}_{dtype}"
+            check_bounds(boxes, mask, oh, ow, h, w, tag)
+            got, want = roi_pool(*args), roi_pool_reference(*args)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            need(err == 0.0, f"{tag} differs from its plain version by {err}")
+            need(not got[~mask].any(), f"{tag}: a masked box is not zero")
+            checks[tag] = dict(max_abs_err=err, vec=roi_pool_plan(
+                dtype, b, p, h, w, c, oh, ow).vec)
+
     boxes, mask = synthetic_boxes(torch, dev)
     h = w = IMG // 4
     b, p = mask.shape
     covered, bin_px = roi_work(torch, boxes, mask, h, w)
+    bins_px, pyramid_reads = roi_bins_px(torch, boxes, mask, h, w)
+    largest_bin = int(bins_px.max())
+    # The bin bounds by their kernel (K3's first launch) and by the plain
+    # chain of PyTorch ops that it replaces on the card.
+    bd_args = check_bounds(boxes, mask, 3, 3, h, w, "roi_pool_bounds")
+    bounds_times = dict(
+        bounds_ms=cuda_ms(torch, lambda: roi_pool_bounds(*bd_args), reps=20,
+                          warmup=3),
+        bounds_plain_ms=cuda_ms(torch, lambda: roi_bounds(*bd_args), reps=20,
+                                warmup=3))
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         fm = torch.randn(B, h, w, 64, generator=gen, device=dev).to(dtype)
@@ -216,13 +361,20 @@ def phase_kernels(torch, dev):
         n_ops = bin_px * 64
         bms, by = bound_ms(n_bytes, n_ops)
         name = "roi_pool_fwd" + ("" if dtype == torch.bfloat16 else "_f32")
+        t = timings(torch, lambda: roi_pool(*args), reps=20)
+        plan = roi_pool_plan(dtype, b, p, h, w, 64, 3, 3)
         results[name] = dict(
-            max_abs_err=err,
-            ms=cuda_ms(torch, lambda: roi_pool(*args), reps=20, warmup=3),
+            max_abs_err=err, **t,
             plain_ms=cuda_ms(torch, lambda: roi_pool_reference(*args),
                              reps=2),
             bound_ms=bms, bound_by=by, bytes=n_bytes, operations=n_ops,
-            valid_boxes=int(mask.sum()), shape=list(fm.shape), P=P,
+            achieved_gb_per_s=n_bytes / t["ms"] / 1e6,
+            bound_share=bms / t["ms"],
+            reread_factor=bin_px / covered, largest_bin_px=largest_bin,
+            covered_px=covered, bin_px=bin_px,
+            pyramid_reads_px=pyramid_reads,
+            pyramid_bytes=fm.numel() // h * plan.n_chunks * isz,
+            **bounds_times, valid_boxes=int(mask.sum()), shape=list(fm.shape), P=P,
             dtype=str(dtype),
         )
         del fm, got, want
@@ -286,39 +438,58 @@ def phase_kernels(torch, dev):
         )
         del fm, pooled, g, got, want, args
 
-    ys = tied(torch, gen, (TRAIN_B, h, w, 256), torch.bfloat16, dev, 8.0)
-    scale = torch.rand(64, generator=gen, device=dev) + 0.5
-    shift = torch.randn(64, generator=gen, device=dev) * 0.5
-    g = torch.randn(TRAIN_B, h, w, 64, generator=gen, device=dev).to(
-        torch.bfloat16)
-    bargs = (ys, scale, shift, g)
-    got = bn_relu_pool_s2d_backward(*bargs)
-    want = bn_relu_pool_s2d_backward_reference(*bargs)
-    torch.cuda.synchronize()
-    err = float((got[0].float() - want[0].float()).abs().max())
-    need(err == 0.0, f"bn_relu_pool_s2d_backward dys differs from its plain "
-                     f"version by {err}")
-    sum_err = []
-    for a, ref in zip(got[1:], want[1:]):
-        d = float((a - ref).abs().max())
-        tol = 1e-4 * float(ref.abs().max())
-        need(bool(((a - ref).abs() <= tol + 1e-4 * ref.abs()).all()),
-             f"bn_relu_pool_s2d_backward d(scale)/d(shift) differ by {d}")
-        sum_err.append(d)
-    n_bytes = 2 * ys.numel() * 2 + g.numel() * 2 + 2 * 64 * 4 * 2
-    n_ops = ys.numel() * 8  # affine 2, tie-rule compares 3, sums 3
-    bms, by = bound_ms(n_bytes, n_ops)
-    results["bn_relu_pool_bwd"] = dict(
-        max_abs_err=err, dscale_dshift_max_abs_err=sum_err,
-        ms=cuda_ms(torch, lambda: bn_relu_pool_s2d_backward(*bargs),
-                   reps=20, warmup=3),
-        plain_ms=cuda_ms(
-            torch, lambda: bn_relu_pool_s2d_backward_reference(*bargs),
-            reps=3),
-        bound_ms=bms, bound_by=by, bytes=n_bytes, operations=n_ops,
-        shape=list(ys.shape), dtype="torch.bfloat16",
-    )
-    return results
+    # K6 away from the flagship shape, then at it (bf16 and f32), on tied
+    # inputs: dys bit-exact; d(scale)/d(shift), f32 sums over the whole map
+    # in another order, within rtol 1e-4 plus 1e-4 of their largest value.
+    def check_bwd(shape, dtype, tag):
+        b_, u, v, o = shape
+        ys = tied(torch, gen, (b_, u, v, 4 * o), dtype, dev, 8.0)
+        scale = torch.rand(o, generator=gen, device=dev) + 0.5
+        shift = torch.randn(o, generator=gen, device=dev) * 0.5
+        g = torch.randn(b_, u, v, o, generator=gen, device=dev).to(dtype)
+        bargs = (ys, scale, shift, g)
+        got = bn_relu_pool_s2d_backward(*bargs)
+        want = bn_relu_pool_s2d_backward_reference(*bargs)
+        torch.cuda.synchronize()
+        err = float((got[0].float() - want[0].float()).abs().max())
+        need(err == 0.0, f"{tag} dys differs from its plain version by {err}")
+        sum_err = []
+        for a, ref in zip(got[1:], want[1:]):
+            d = float((a - ref).abs().max())
+            tol = 1e-4 * float(ref.abs().max())
+            need(bool(((a - ref).abs() <= tol + 1e-4 * ref.abs()).all()),
+                 f"{tag} d(scale)/d(shift) differ by {d}")
+            sum_err.append(d)
+        return bargs, dict(max_abs_err=err, dscale_dshift_max_abs_err=sum_err)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in BN_RAGGED:
+            tag = "bn_relu_pool_bwd_" + "x".join(map(str, shape)) + f"_{dtype}"
+            _, checks[tag] = check_bwd(shape, dtype, tag)
+            checks[tag]["plan"] = bwd_plan(dtype, *shape)._asdict()
+    for dtype in (torch.bfloat16, torch.float32):
+        shape = (TRAIN_B, h, w, 64)
+        name = "bn_relu_pool_bwd" + ("" if dtype == torch.bfloat16 else "_f32")
+        bargs, row = check_bwd(shape, dtype, name)
+        ys, g = bargs[0], bargs[3]
+        isz = ys.element_size()
+        n_bytes = 2 * ys.numel() * isz + g.numel() * isz + 2 * 64 * 4 * 2
+        n_ops = ys.numel() * 8  # affine 2, tie-rule compares 3, sums 3
+        bms, by = bound_ms(n_bytes, n_ops)
+        t = timings(torch, lambda: bn_relu_pool_s2d_backward(*bargs), reps=20)
+        results[name] = dict(
+            row, **t,
+            plain_ms=cuda_ms(
+                torch, lambda: bn_relu_pool_s2d_backward_reference(*bargs),
+                reps=3),
+            bound_ms=bms, bound_by=by, bytes=n_bytes, operations=n_ops,
+            achieved_gb_per_s=n_bytes / t["ms"] / 1e6,
+            bound_share=bms / t["ms"],
+            plan=bwd_plan(dtype, *shape)._asdict(),
+            shape=list(ys.shape), dtype=str(dtype),
+        )
+        del bargs, ys, g
+    return results, checks
 
 
 # Shapes of the conv kernels' checks: (B, H, W, C, O). The small ones have
@@ -1214,7 +1385,11 @@ def main() -> int:
              if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": sorted(reports), "ptxas": ptxas,
-          "conv_bf16": conv_bf16_build_report(reports.get("conv3x3", ""))})
+          "conv_bf16": conv_bf16_build_report(reports.get("conv3x3", "")),
+          "pool": {**ptxas_report(reports.get("roi_pool", ""), (
+              "roi_pool_pyramid_kernel", "roi_pool_bins_kernel")),
+              **ptxas_report(reports.get("bn_pool", ""), (
+                  "bn_relu_pool_bwd_kernel",))}})
 
     # Phase names as arguments run those phases alone (for work on one of
     # them); the summary and the ok line come only from a whole run.
@@ -1224,9 +1399,10 @@ def main() -> int:
     need(all(p in phases for p in only), f"phases are {phases}")
     kernels, launches = {}, {}
     if not only or "kernels" in only:
-        kernels.update(phase_kernels(torch, dev))
-        emit({"phase": "kernels", "names": sorted(kernels),
-              "results": kernels})
+        k_results, k_checks = phase_kernels(torch, dev)
+        kernels.update(k_results)
+        emit({"phase": "kernels", "names": sorted(k_results),
+              "results": k_results, "checks": k_checks})
     if not only or "conv_kernels" in only:
         conv_results, conv_checks = phase_conv_kernels(torch, dev)
         kernels.update(conv_results)
@@ -1260,21 +1436,26 @@ def main() -> int:
     # run: K1-K6 over the train phase's `cli train` (the serve phase's
     # counts are in its own line), K7 over the conv phase's `cli train`
     # under the opt-in, K8 over the conv phase's shoot-out.
+    # One row per TPU kernel: K2 and K4 (the plain-walk variants of K1 and
+    # K3) compute the same functions and share their CUDA kernels' rows.
     csrc = "cova_tpu_torch/csrc/"
     meta = {
         "roi_pool_fwd": ("roi_pool.cu", "roi_pool_pallas.py:215"),
-        "bn_relu_pool_fwd": ("bn_pool.cu", "bn_pool.py:75"),
+        "roi_pool_fwd_k2": ("roi_pool.cu", "roi_pool_pallas.py:130"),
         "roi_pool_bwd": ("roi_pool.cu", "roi_pool_pallas.py:521"),
+        "roi_pool_bwd_k4": ("roi_pool.cu", "roi_pool_pallas.py:344"),
+        "bn_relu_pool_fwd": ("bn_pool.cu", "bn_pool.py:75"),
         "bn_relu_pool_bwd": ("bn_pool.cu", "bn_pool.py:102"),
         "conv3x3_fwd": ("conv3x3.cu", "conv3x3.py:55"),
         "conv3x3_roll_fwd": ("conv3x3.cu", "conv3x3.py:92"),
     }
     rows = []
-    for name, (src, rep) in meta.items():
+    for row_name, (src, rep) in meta.items():
+        name = row_name.rsplit("_k", 1)[0]
         need(launches[name] > 0, f"{name} was not launched on its main path")
         k = kernels[name]
         rows.append({
-            "name": name, "route": "cuda", "source": csrc + src,
+            "name": row_name, "route": "cuda", "source": csrc + src,
             "replaces": "cova_tpu/ops/" + rep, "launches": launches[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -75,11 +75,9 @@
 // into shared memory with plain loads, and each thread owns 4 pixels x 8
 // output channels.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -346,53 +344,6 @@ __host__ __device__ inline int panel_bytes(int n) {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Returns once the barrier's phase differs from `parity`.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* m,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* m,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
 }
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -861,25 +812,6 @@ int launch(void (*kernel)(const T*, const T*, T*, int, int, int, int, int, int,
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled is the one libcuda call this file makes; it is
-// looked up in libcuda.so.1, which the process has already loaded, so the
-// library links against the CUDA runtime alone.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return h ? reinterpret_cast<EncodeTiled>(
-                   dlsym(h, "cuTensorMapEncodeTiled"))
-             : nullptr;
-  }();
-  return fn;
-}
-
 int sm_count() {
   static int n = [] {
     int dev = 0, v = 0;
@@ -890,21 +822,11 @@ int sm_count() {
   return n;
 }
 
-constexpr int kErrNoEncoder = 20001;    // cuTensorMapEncodeTiled not found
-constexpr int kErrEncodeBase = 30000;  // + the CUresult of a refused map
-
 // bf16 tensor map with the 128-byte swizzle and zero fill outside the tensor.
 int encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
            const cuuint64_t* strides, const cuuint32_t* box) {
-  EncodeTiled enc = encode_tiled();
-  if (!enc) return kErrNoEncoder;
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  const CUresult rc = enc(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-      const_cast<void*>(base), dims, strides, box, ones,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? 0 : kErrEncodeBase + (int)rc;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, base, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int N>

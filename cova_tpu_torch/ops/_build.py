@@ -4,9 +4,10 @@ ctypes.
 Each ``csrc/<name>.cu`` exports plain C functions (pointers, ints and the
 stream; no PyTorch headers), so ``nvcc`` builds it in seconds. Every source
 is compiled by its own ``nvcc`` process, all started together, into
-``csrc/build/<hash>/lib<name>.so``; the hash covers the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused. The
-directory is listed in ``.gitignore``.
+``csrc/build/<hash>/lib<name>.so``; the hash covers the source, the
+headers of ``csrc/`` (``hopper.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused. The directory is listed
+in ``.gitignore``.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -50,8 +51,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            key.update(src.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, key.hexdigest()[:16], f"lib{name}.so")
 
 

@@ -22,11 +22,18 @@ version bit for bit, and so does the backward's ``dys``; ``dscale`` and
 ``dshift`` are sums over the whole map taken in another order (see the notes
 in ``csrc/bn_pool.cu``). ``bn_relu_pool_s2d_plain`` is the same autograd
 function over the plain versions, on any device.
+
+The backward kernel walks tiles of the map in shared memory, finds each
+output's winner once and lets every input gather its contributions;
+``bwd_plan`` is its launch plan and
+``bn_relu_pool_s2d_backward_tiled_reference`` a plain version that follows
+its schedule, so the CPU tests reach its index arithmetic.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,9 +45,18 @@ _FNS = {torch.float32: "bn_relu_pool_fwd_f32",
         torch.bfloat16: "bn_relu_pool_fwd_bf16"}
 _BWD_FNS = {torch.float32: "bn_relu_pool_bwd_f32",
             torch.bfloat16: "bn_relu_pool_bwd_bf16"}
-# Blocks of the backward kernel: each walks the map with a grid stride and
-# writes one row of d(scale)/d(shift) partials, summed here afterwards.
-_BWD_MAX_BLOCKS = 2048
+# The backward kernel's schedule (``csrc/bn_pool.cu``): s2d blocks per tile
+# by dtype (BwdTile), threads per block at most, blocks it aims to keep on an
+# SM; the H100's shared memory per SM and per block (227 KB), and what the
+# runtime keeps of it per block.
+BWD_TILES = {torch.bfloat16: (8, 16), torch.float32: (8, 8)}
+BWD_MAX_THREADS = 256
+BWD_BLOCKS_PER_SM = 3
+SMEM_PER_SM = 233472
+SMEM_MAX = 232448
+SMEM_RESERVED = 1024
+N_SMS = 132
+_VEC_BYTES = 16
 
 
 def bn_relu_pool_s2d_reference(
@@ -112,6 +128,187 @@ def bn_relu_pool_s2d_backward_reference(
     return dys, dscale, dshift
 
 
+class BwdPlan(NamedTuple):
+    """How the backward kernel (``csrc/bn_pool.cu``) runs one shape."""
+
+    vec: int  # channels per access: 16 bytes' worth, else one pair
+    fc: int  # channels f per chunk (of each of the four groups)
+    n_chunks: int  # O // fc; block x keeps chunk x % n_chunks
+    tile: Tuple[int, int]  # s2d blocks per tile
+    block: Tuple[int, int]  # threads: (4 * fc // vec, pixel slots)
+    smem_bytes: int  # dynamic shared memory per block
+    n_tiles: int
+    n_walkers: int  # blocks per chunk; each walks every n_walkers-th tile
+
+
+def _bwd_smem(fc: int, vec: int, itemsize: int, threads: int,
+              tile: Tuple[int, int]) -> int:
+    """Bytes of the layout of ``csrc/bn_pool.cu`` from a 128-byte boundary
+    (128 bytes of slack before it): two tile buffers (ys with its halo, g
+    of the tile's outputs, each rounded up to 128 bytes), the winner codes
+    (rounded up to 16), the chunk's scale and shift, two mbarriers; and the
+    sums' reduction, which reuses the same memory at the end."""
+    tu, tv = tile
+    seg = fc * itemsize
+
+    def up(n, k):
+        return -(-n // k) * k
+
+    stage = (up((tu + 2) * (tv + 2) * 4 * seg, 128)
+             + up((tu + 1) * (tv + 1) * seg, 128))
+    codes = up((tu + 1) * (tv + 1) * fc, 16)
+    return 128 + max(2 * stage + codes + 2 * fc * 4 + 16,
+                     threads * 2 * vec * 4)
+
+
+def bwd_plan(dtype: torch.dtype, b: int, u: int, v: int, o: int,
+             aligned: bool = True) -> BwdPlan:
+    """The backward kernel's plan for ys [b, u, v, 4*o]; ``aligned``: ys, g
+    and dys lie on 16-byte addresses. The channel chunk is the largest
+    divisor of o (a multiple of the access width) whose tiles leave room for
+    BWD_BLOCKS_PER_SM blocks on an SM. Raises for what the kernel does not
+    take."""
+    if dtype not in _BWD_FNS:
+        raise TypeError(f"bn_relu_pool_s2d_backward: unsupported dtype {dtype}")
+    if o % 2 or o < 2 or o > 512:
+        raise ValueError(f"bn_relu_pool_s2d_backward: need an even O <= 512, "
+                         f"got {o}")
+    isz = torch.empty((), dtype=dtype).element_size()
+    full = _VEC_BYTES // isz
+    vec = full if aligned and o % full == 0 else 2
+    tile = BWD_TILES[dtype]
+    cands = [fc for fc in range(vec, o + 1, vec)
+             if o % fc == 0 and 4 * fc // vec <= BWD_MAX_THREADS]
+
+    def smem(fc):
+        lanes = 4 * fc // vec
+        return _bwd_smem(fc, vec, isz, lanes * (BWD_MAX_THREADS // lanes),
+                         tile)
+
+    room = SMEM_PER_SM // BWD_BLOCKS_PER_SM - SMEM_RESERVED
+    fc = max([fc for fc in cands if smem(fc) <= room] or [min(cands)])
+    lanes = 4 * fc // vec
+    block = (lanes, BWD_MAX_THREADS // lanes)
+    n_tiles = b * -(-u // tile[0]) * -(-v // tile[1])
+    n_chunks = o // fc
+    per_sm = max(1, min(BWD_BLOCKS_PER_SM,
+                        SMEM_PER_SM // (smem(fc) + SMEM_RESERVED)))
+    n_walkers = max(1, min(n_tiles, -(-N_SMS * per_sm // n_chunks)))
+    return BwdPlan(vec, fc, n_chunks, tile, block, smem(fc), n_tiles,
+                   n_walkers)
+
+
+def _winner_codes(z: torch.Tensor, up: torch.Tensor,
+                  left: torch.Tensor) -> torch.Tensor:
+    """The backward kernel's winner codes of the outputs of one tile.
+
+    z: the affine [R + 1, S + 1, 4, O] of the tile's ys with its halo row
+    above and column to the left (f32); up, left: [R, 1] and [1, S] bool,
+    whether row i-1 (column j-1) of output (i, j) lies in the map. Returns
+    uint8 [R, S, O]: 0 where no gradient flows, else 1 + 4 * group + 2 *
+    (row i-1 won) + (column j-1 won)."""
+    ninf = torch.tensor(float("-inf"))
+    up, left = up[..., None], left[..., None]
+    here, west = z[1:, 1:], z[1:, :-1]
+    north, nw = z[:-1, 1:], z[:-1, :-1]
+    best = torch.full(here.shape[:2] + here.shape[3:], float("-inf"))
+    code = torch.zeros(best.shape, dtype=torch.uint8)
+
+    def take(zr, w):
+        nonlocal best, code
+        win = zr > best
+        best = torch.where(win, zr, best)
+        code = torch.where(win, w.to(torch.uint8), code)
+
+    take(here[:, :, 0], torch.tensor(1))
+    # group 1: column j-1 against j, j-1 wins ties.
+    zl = torch.where(left, west[:, :, 1], ninf)
+    cs = zl >= here[:, :, 1]
+    take(torch.where(cs, zl, here[:, :, 1]), 5 + cs.int())
+    # group 2: row i-1 against i, i-1 wins ties.
+    zu = torch.where(up, north[:, :, 2], ninf)
+    rs = zu >= here[:, :, 2]
+    take(torch.where(rs, zu, here[:, :, 2]), 9 + 2 * rs.int())
+    # group 3: the column stage on rows i and i-1, then the row stage.
+    zl = torch.where(left, west[:, :, 3], ninf)
+    ci = zl >= here[:, :, 3]
+    zi = torch.where(ci, zl, here[:, :, 3])
+    zul = torch.where(left, nw[:, :, 3], ninf)
+    cu = up & (zul >= north[:, :, 3])
+    zu = torch.where(up, torch.where(cu, zul, north[:, :, 3]), ninf)
+    rs = zu >= zi
+    cs = torch.where(rs, cu, ci)
+    take(torch.where(rs, zu, zi), 13 + 2 * rs.int() + cs.int())
+    return torch.where(best > 0, code, torch.zeros_like(code))
+
+
+def bn_relu_pool_s2d_backward_tiled_reference(
+    ys: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+    g: torch.Tensor,
+):
+    """Plain version that follows the backward kernel's schedule
+    (``bwd_plan``): each walker's tiles in order; per tile, the winner codes
+    of its outputs and of its extra row and column from ys with its halo
+    (``_winner_codes``), then each input's gather of the at most four
+    contributions in the plain version's order; the d(scale)/d(shift) sums
+    per walker, then over the walkers. dys equals
+    ``bn_relu_pool_s2d_backward_reference``'s bit for bit; the sums differ
+    from its only by the order of f32 additions. On the CPU."""
+    b_, u_, v_, c4 = ys.shape
+    o = c4 // 4
+    plan = bwd_plan(ys.dtype, b_, u_, v_, o)
+    tu, tv = plan.tile
+    nu, nv = -(-u_ // tu), -(-v_ // tv)
+    sc, sh = scale.float(), shift.float()
+    x_all = ys.float().reshape(b_, u_, v_, 4, o)
+    gf = g.to(ys.dtype).float()
+    dys = torch.empty_like(ys)
+    rows = []
+    for walker in range(plan.n_walkers):
+        dsc = torch.zeros(4, o)
+        dsh = torch.zeros(4, o)
+        for t in range(walker, plan.n_tiles, plan.n_walkers):
+            b, rest = divmod(t, nu * nv)
+            u0, v0 = (rest // nv) * tu, (rest % nv) * tv
+            # ys rows u0-1 .. u0+tu, columns v0-1 .. v0+tv; the affine of the
+            # taps that lie in the map, -inf padding above and to the left.
+            z = torch.full((tu + 2, tv + 2, 4, o), float("-inf"))
+            r0, c0 = max(u0 - 1, 0), max(v0 - 1, 0)
+            r1, c1 = min(u0 + tu + 1, u_), min(v0 + tv + 1, v_)
+            z[r0 - u0 + 1 : r1 - u0 + 1, c0 - v0 + 1 : c1 - v0 + 1] = (
+                x_all[b, r0:r1, c0:c1] * sc + sh)
+            i = torch.arange(u0, u0 + tu + 1)[:, None]
+            j = torch.arange(v0, v0 + tv + 1)[None, :]
+            code = _winner_codes(z[: tu + 2, : tv + 2], i > 0, j > 0)
+            code[(i >= u_).expand(-1, tv + 1)] = 0
+            code[(j >= v_).expand(tu + 1, -1)] = 0
+            gt = torch.zeros(tu + 1, tv + 1, o)
+            ru, cv_ = min(tu + 1, u_ - u0), min(tv + 1, v_ - v0)
+            gt[:ru, :cv_] = gf[b, u0 : u0 + ru, v0 : v0 + cv_]
+            # Inputs (u0 + a, v0 + c): outputs (a, c), (a+1, c), (a, c+1),
+            # (a+1, c+1) of the tile, in that order.
+            nu_in, nv_in = min(tu, u_ - u0), min(tv, v_ - v0)
+            for grp in range(4):
+                want = 1 + 4 * grp
+
+                def part(da, dc, inc):
+                    cd = code[da : da + nu_in, dc : dc + nv_in]
+                    gg = gt[da : da + nu_in, dc : dc + nv_in]
+                    return torch.where(cd == want + inc, gg, 0.0)
+
+                a0 = (0.0 + part(0, 0, 0)) + part(1, 0, 2)
+                a1 = (0.0 + part(0, 1, 1)) + part(1, 1, 3)
+                d = a0 + a1
+                x = x_all[b, u0 : u0 + nu_in, v0 : v0 + nv_in, grp]
+                dys[b, u0 : u0 + nu_in, v0 : v0 + nv_in,
+                    grp * o : (grp + 1) * o] = (d * sc).to(ys.dtype)
+                dsc[grp] += (d * x).sum((0, 1))
+                dsh[grp] += d.sum((0, 1))
+        rows.append(torch.stack([dsc.reshape(-1), dsh.reshape(-1)]))
+    sums = torch.stack(rows).sum(0).reshape(2, 4, o).sum(1)
+    return dys, sums[0], sums[1]
+
+
 def _check(ys: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
            what: str, fns) -> int:
     if ys.device.type != "cuda":
@@ -139,7 +336,7 @@ def _bind(lib) -> None:
         fn.restype = ctypes.c_int
     for name in _BWD_FNS.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
@@ -181,24 +378,24 @@ def bn_relu_pool_s2d_backward(
     if g.shape != (b, u, v, o):
         raise ValueError(f"bn_relu_pool_s2d_backward: g must be "
                          f"[{b}, {u}, {v}, {o}], got {tuple(g.shape)}")
-    half = o // 2
-    if half > 256:
-        raise ValueError("bn_relu_pool_s2d_backward: at most 512 channels")
+    if (BWD_TILES[ys.dtype][0] + 2) * v * c4 >= 2 ** 31:
+        raise ValueError("bn_relu_pool_s2d_backward: a tile's rows must "
+                         "span fewer than 2^31 elements")
     scale = scale.detach().to(torch.float32).contiguous()
     shift = shift.detach().to(torch.float32).contiguous()
     g = g.detach().to(ys.dtype).contiguous()
-    threads = half * (256 // half)
-    n_blocks = max(1, min(_BWD_MAX_BLOCKS,
-                          -(-b * u * v * half // threads)))
     dys = torch.empty_like(ys)
-    partial = torch.empty((n_blocks, 2, c4), dtype=torch.float32,
+    plan = bwd_plan(ys.dtype, b, u, v, o, aligned=all(
+        t.data_ptr() % _VEC_BYTES == 0 for t in (ys, g, dys)))
+    partial = torch.empty((plan.n_walkers, 2, c4), dtype=torch.float32,
                           device=ys.device)
     lib = _build.library("bn_pool", _bind)
     with torch.cuda.device(ys.device):
         rc = getattr(lib, _BWD_FNS[ys.dtype])(
             ys.data_ptr(), scale.data_ptr(), shift.data_ptr(), g.data_ptr(),
-            dys.data_ptr(), partial.data_ptr(), b, u, v, o, n_blocks,
-            _build.stream_ptr(ys),
+            dys.data_ptr(), partial.data_ptr(), b, u, v, o, plan.vec,
+            plan.fc, *plan.tile, plan.n_walkers, plan.block[1],
+            plan.smem_bytes, _build.stream_ptr(ys),
         )
     _build.check(rc, "bn_relu_pool_s2d_backward")
     bn_relu_pool_s2d_backward.launches += 1

@@ -26,12 +26,22 @@ agree bit for bit, forward (a max selects one of its inputs) and backward
 (both add a pixel's contributions in f32 in the same order, box by box and
 bin by bin). ``roi_pool_plain`` is the same autograd function over the plain
 versions, on any device.
+
+Both kernels compute the bin bounds from the boxes with one rule in CUDA:
+the forward kernel for its own bins, and the backward's launch starts with
+a bounds kernel that writes ``roi_bounds``'s layout (``roi_pool_bounds``
+runs it alone), so forward and backward agree on every bin. The forward
+kernel builds a max pyramid over 8-row chunks of the map and reads each
+bin's interior chunks from it and only its edge rows from the map;
+``roi_pool_plan`` is its launch plan and ``roi_pool_pyramid_reference`` a
+plain version that follows its schedule, so the CPU tests reach its index
+arithmetic.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,8 +51,13 @@ _FNS = {torch.float32: "roi_pool_fwd_f32",
         torch.bfloat16: "roi_pool_fwd_bf16"}
 _BWD_FNS = {torch.float32: "roi_pool_bwd_f32",
             torch.bfloat16: "roi_pool_bwd_bf16"}
+_BOUNDS_FN = "roi_pool_bounds"
 # The backward kernel keeps a tile's list of boxes in shared memory.
 _BWD_MAX_BOXES = 8192
+# The forward kernel's schedule (``csrc/roi_pool.cu``: kChunk, kBinThreads).
+ROI_CHUNK = 8
+ROI_BIN_THREADS = 128
+_VEC_BYTES = 16
 
 
 def _quantize(v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -152,6 +167,106 @@ def roi_pool_backward_reference(
     return dfm.to(fm.dtype)
 
 
+class RoiPoolPlan(NamedTuple):
+    """How the forward kernel (``csrc/roi_pool.cu``) runs one shape."""
+
+    vec: int  # channels per access: 16 bytes' worth, else one pair
+    chunk: int  # pyramid rows per chunk
+    n_chunks: int  # ceil(H / chunk); the last chunk may be partial
+    pyramid_shape: Tuple[int, int, int, int]  # [B, n_chunks, W, C]
+    threads: int  # threads of one bin's block
+    vecs_per_pass: int  # channel vectors one pass of the block covers
+    slots: int  # pixel slots: the block reads `slots` columns per step
+    n_items: int  # blocks: one per (image, box, bin)
+    smem_bytes: int  # static shared memory of the bins kernel
+
+
+def roi_pool_plan(dtype: torch.dtype, b: int, p: int, h: int, w: int, c: int,
+                  out_h: int, out_w: int, aligned: bool = True) -> RoiPoolPlan:
+    """The forward kernel's plan for fm [b, h, w, c] and p boxes of out_h x
+    out_w bins; ``aligned``: fm's address is a multiple of 16 bytes.
+    Raises for what the kernel does not take."""
+    if dtype not in _FNS:
+        raise TypeError(f"roi_pool: unsupported dtype {dtype}")
+    if c % 2 or c < 2 or out_h < 1 or out_w < 1 or out_h * out_w > 32:
+        raise ValueError(f"roi_pool: need an even channel count and at most "
+                         f"32 bins, got C={c}, {out_h}x{out_w}")
+    isz = torch.empty((), dtype=dtype).element_size()
+    full = _VEC_BYTES // isz
+    vec = full if aligned and c % full == 0 else 2
+    per_pass = min(c // vec, ROI_BIN_THREADS)
+    n_chunks = -(-h // ROI_CHUNK)
+    return RoiPoolPlan(vec, ROI_CHUNK, n_chunks, (b, n_chunks, w, c),
+                       ROI_BIN_THREADS, per_pass, ROI_BIN_THREADS // per_pass,
+                       b * p * out_h * out_w, ROI_BIN_THREADS * vec * isz)
+
+
+def roi_pyramid(fm: torch.Tensor, chunk: int = ROI_CHUNK) -> torch.Tensor:
+    """The forward kernel's first launch: the max of fm [B, H, W, C] over
+    the rows [k * chunk, min(H, (k + 1) * chunk)), as [B, ceil(H / chunk),
+    W, C]; the last chunk may be partial."""
+    b, h, w, c = fm.shape
+    full = h // chunk
+    parts = [fm[:, : full * chunk].reshape(b, full, chunk, w, c).amax(2)]
+    if h % chunk:
+        parts.append(fm[:, full * chunk :].amax(1, keepdim=True))
+    return torch.cat(parts, 1)
+
+
+def bin_rows(ylo: int, yhi: int, h: int, chunk: int = ROI_CHUNK):
+    """The forward kernel's split of a non-empty bin's rows [ylo, yhi) of a
+    map of h rows: top edge rows of fm, a run of pyramid chunks that lie
+    wholly inside the bin (the last, partial chunk counts where the bin
+    reaches row h), bottom edge rows of fm; as three half-open ranges."""
+    c0 = -(-ylo // chunk)
+    c1 = -(-h // chunk) if yhi == h else yhi // chunk
+    if c0 < c1:
+        return (ylo, c0 * chunk), (c0, c1), (min(c1 * chunk, yhi), yhi)
+    return (ylo, yhi), (c0, c0), (yhi, yhi)
+
+
+def roi_pool_pyramid_reference(
+    fm: torch.Tensor,
+    boxes: torch.Tensor,
+    box_mask: Optional[torch.Tensor],
+    spatial_scale: float,
+    out_h: int = 3,
+    out_w: int = 3,
+) -> torch.Tensor:
+    """Plain version that follows the forward kernel's schedule: the chunk
+    pyramid, one work item per (image, box, bin) walked from the last image
+    to the first, each bin's rows split by ``bin_rows`` and its columns over
+    the block's pixel slots. Equal to ``roi_pool_reference`` bit for bit."""
+    b_, h, w, c = fm.shape
+    p_ = boxes.shape[1]
+    plan = roi_pool_plan(fm.dtype, b_, p_, h, w, c, out_h, out_w)
+    pyr = roi_pyramid(fm, plan.chunk)
+    out = fm.new_zeros((b_, p_, out_h, out_w, c))
+    bounds = roi_bounds(boxes, box_mask, spatial_scale, out_h, out_w, h,
+                        w).tolist()
+    bins = out_h * out_w
+    for item in reversed(range(plan.n_items)):
+        bp, bin_ = divmod(item, bins)
+        b, p = divmod(bp, p_)
+        i, j = divmod(bin_, out_w)
+        bd = bounds[b][p]
+        ylo, yhi = bd[i], bd[out_h + i]
+        xlo, xhi = bd[2 * out_h + j], bd[2 * out_h + out_w + j]
+        if yhi <= ylo or xhi <= xlo:
+            continue
+        (t0, t1), (c0, c1), (e0, e1) = bin_rows(ylo, yhi, h, plan.chunk)
+        rows = torch.cat([fm[b, t0:t1], pyr[b, c0:c1], fm[b, e0:e1]])
+        # Slot s reads the columns xlo + s, xlo + s + slots, ...
+        n_step = -(-(xhi - xlo) // plan.slots)
+        cols = rows.new_full((rows.shape[0], n_step * plan.slots, c),
+                             float("-inf"))
+        cols[:, : xhi - xlo] = rows[:, xlo:xhi]
+        slot_max = cols.reshape(rows.shape[0], n_step, plan.slots, c).amax(
+            (0, 1))
+        out[b, p, i, j] = slot_max.amax(0)
+    return out
+
+
 def _check(fm: torch.Tensor, boxes: torch.Tensor, what: str, fns,
            out_h: int, out_w: int) -> None:
     if fm.device.type != "cuda":
@@ -170,18 +285,68 @@ def _check(fm: torch.Tensor, boxes: torch.Tensor, what: str, fns,
 
 
 def _bind(lib) -> None:
+    # (pointers, then B, P, H, W[, C], out_h, out_w, then the scale) and, in
+    # the forward, vec and chunk; the stream last.
+    ints, scale = [ctypes.c_int] * 7, [ctypes.c_float]
+    sigs = {_BOUNDS_FN: [ctypes.c_void_p] * 3 + ints[:6] + scale}
     for name in _FNS.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
+        sigs[name] = ([ctypes.c_void_p] * 5 + ints + scale
+                      + [ctypes.c_int] * 2)
     for name in _BWD_FNS.values():
+        sigs[name] = [ctypes.c_void_p] * 7 + ints + scale
+    for name, args in sigs.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p
-        ]
+        fn.argtypes = args + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+
+
+def _box_args(boxes: torch.Tensor, box_mask: Optional[torch.Tensor],
+              what: str):
+    """The boxes as f32 and the mask as bool (or None), both contiguous."""
+    b, p = boxes.shape[:2]
+    mask = None
+    if box_mask is not None:
+        if box_mask.shape != (b, p) or box_mask.device != boxes.device:
+            raise ValueError(f"{what}: box_mask must be [{b}, {p}] on "
+                             f"{boxes.device}")
+        mask = box_mask.to(torch.bool).contiguous()
+    return boxes.to(torch.float32).contiguous(), mask
+
+
+def _bounds_buffer(boxes: torch.Tensor, out_h: int,
+                   out_w: int) -> torch.Tensor:
+    """An int32 [B, P, 2*out_h + 2*out_w] buffer for the bounds kernel."""
+    return torch.empty((*boxes.shape[:2], 2 * out_h + 2 * out_w),
+                       dtype=torch.int32, device=boxes.device)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def roi_pool_bounds(boxes: torch.Tensor, box_mask: Optional[torch.Tensor],
+                    spatial_scale: float, out_h: int, out_w: int, h: int,
+                    w: int) -> torch.Tensor:
+    """The bin bounds of every box, as ``roi_bounds`` lays them out: the
+    bounds kernel on a CUDA tensor (one launch for all boxes; equal to
+    ``roi_bounds`` bit for bit), ``roi_bounds`` itself on the CPU."""
+    if boxes.device.type == "cpu":
+        return roi_bounds(boxes, box_mask, spatial_scale, out_h, out_w, h, w)
+    if boxes.device.type != "cuda" or boxes.dim() != 3 or boxes.shape[2] != 4:
+        raise ValueError(f"roi_pool_bounds: boxes must be [B, P, 4] on a "
+                         f"CUDA device, got {tuple(boxes.shape)} on "
+                         f"{boxes.device}")
+    boxes, mask = _box_args(boxes, box_mask, "roi_pool_bounds")
+    bounds = _bounds_buffer(boxes, out_h, out_w)
+    lib = _build.library("roi_pool", _bind)
+    with torch.cuda.device(boxes.device):
+        rc = getattr(lib, _BOUNDS_FN)(
+            boxes.data_ptr(), _ptr(mask), bounds.data_ptr(), *boxes.shape[:2],
+            h, w, out_h, out_w, float(spatial_scale),
+            _build.stream_ptr(boxes),
+        )
+    _build.check(rc, "roi_pool_bounds")
+    return bounds
 
 
 def _forward(fm, boxes, box_mask, spatial_scale, out_h=3, out_w=3):
@@ -194,14 +359,21 @@ def _forward(fm, boxes, box_mask, spatial_scale, out_h=3, out_w=3):
     _check(fm, boxes, "roi_pool", _FNS, out_h, out_w)
     b, h, w, c = fm.shape
     p = boxes.shape[1]
-    bounds = roi_bounds(boxes, box_mask, spatial_scale, out_h, out_w, h, w)
     out = torch.empty((b, p, out_h, out_w, c), dtype=fm.dtype,
                       device=fm.device)
+    if out.numel() == 0:
+        return out
+    plan = roi_pool_plan(fm.dtype, b, p, h, w, c, out_h, out_w,
+                         aligned=fm.data_ptr() % _VEC_BYTES == 0)
+    boxes, mask = _box_args(boxes, box_mask, "roi_pool")
+    pyr = torch.empty(plan.pyramid_shape, dtype=fm.dtype, device=fm.device)
     lib = _build.library("roi_pool", _bind)
     with torch.cuda.device(fm.device):
         rc = getattr(lib, _FNS[fm.dtype])(
-            fm.data_ptr(), bounds.data_ptr(), out.data_ptr(),
-            b, p, h, w, c, out_h, out_w, _build.stream_ptr(fm),
+            fm.data_ptr(), boxes.data_ptr(), _ptr(mask), pyr.data_ptr(),
+            out.data_ptr(), b, p, h, w, c, out_h, out_w,
+            float(spatial_scale), plan.vec, plan.chunk,
+            _build.stream_ptr(fm),
         )
     _build.check(rc, "roi_pool")
     roi_pool.launches += 1
@@ -234,16 +406,17 @@ def roi_pool_backward(
     if p > _BWD_MAX_BOXES:
         raise ValueError(f"roi_pool_backward: at most {_BWD_MAX_BOXES} "
                          f"boxes per image, got {p}")
-    bounds = roi_bounds(boxes, box_mask, spatial_scale, out_h, out_w, h, w)
+    boxes, mask = _box_args(boxes, box_mask, "roi_pool_backward")
+    bounds = _bounds_buffer(boxes, out_h, out_w)
     pooled = pooled.to(fm.dtype).contiguous()
     g = g.to(fm.dtype).contiguous()
     dfm = torch.empty_like(fm)
     lib = _build.library("roi_pool", _bind)
     with torch.cuda.device(fm.device):
         rc = getattr(lib, _BWD_FNS[fm.dtype])(
-            fm.data_ptr(), bounds.data_ptr(), pooled.data_ptr(),
-            g.data_ptr(), dfm.data_ptr(), b, p, h, w, c, out_h, out_w,
-            _build.stream_ptr(fm),
+            fm.data_ptr(), boxes.data_ptr(), _ptr(mask), bounds.data_ptr(),
+            pooled.data_ptr(), g.data_ptr(), dfm.data_ptr(), b, p, h, w, c,
+            out_h, out_w, float(spatial_scale), _build.stream_ptr(fm),
         )
     _build.check(rc, "roi_pool_backward")
     roi_pool_backward.launches += 1

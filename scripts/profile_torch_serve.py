@@ -33,7 +33,8 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CATEGORIES = (  # first match wins
-    ("roi_pool (K1)", ("roi_pool_fwd",)),
+    ("roi_pool (K1)", ("roi_pool_pyramid", "roi_pool_bins")),
+    ("roi_pool bin bounds (K3)", ("roi_pool_bounds",)),
     ("bn_relu_pool (K5)", ("bn_relu_pool_fwd",)),
     ("roi_pool backward (K3)", ("roi_pool_bwd",)),
     ("bn_relu_pool backward (K6)", ("bn_relu_pool_bwd",)),

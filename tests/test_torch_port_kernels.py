@@ -41,10 +41,13 @@ from cova_tpu_torch.ops.conv3x3 import (
     conv3x3_reference,
     conv3x3_roll,
 )
+from cova_tpu_torch.ops import _build
 from cova_tpu_torch.ops.roi_pool import (
+    roi_bounds,
     roi_pool,
     roi_pool_backward,
     roi_pool_backward_reference,
+    roi_pool_bounds,
     roi_pool_plain,
     roi_pool_reference,
 )
@@ -85,6 +88,35 @@ def test_roi_pool_kernel_is_bit_exact(cuda, dtype, c, out):
     assert got.shape == want.shape == (3, 50, *out, c)
     assert torch.equal(got, want)
     assert not got[~mask.to(cuda)].any()  # masked boxes are zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [(3, 3), (2, 4), (1, 1)])
+def test_roi_pool_bounds_kernel_equals_roi_bounds(cuda, out):
+    """The bounds kernel that the RoIPool backward launches first, with
+    boxes beyond the image, negative coordinates (roundf away from zero) and
+    masked boxes."""
+    rng = np.random.default_rng(sum(out))
+    boxes, mask = _boxes(rng, 3, 50, 160)
+    for m in (mask.to(cuda), None):
+        args = (boxes.to(cuda), m, 0.25, *out, 40, 36)
+        assert torch.equal(roi_pool_bounds(*args), roi_bounds(*args))
+
+
+def test_kernel_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A library is rebuilt when its source or a header of csrc/ changes,
+    and only then."""
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = _build._lib_path("k")
+    assert _build._lib_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = _build._lib_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert _build._lib_path("k") not in (first, second)
 
 
 @pytest.mark.cuda
