@@ -14,20 +14,26 @@ Phases, each printing one JSON line:
    (bytes over 3.35 TB/s, operations over 67 TFLOP/s f32, the larger;
    published H100 SXM peaks). The forward kernels run at the serving batch
    (B = 10 pages of 1280^2, P = 232 boxes from synthetic pages with padded
-   rows, bf16; roi_pool in f32 too) and must be bit-exact. The backward
-   kernels run at the train batch (B = 5, P = 232) on bf16 inputs rounded
-   to a coarse grid, so ties are common and the tie rules run (roi_pool and
-   bn_relu_pool in f32 too): dfm and dys must be bit-exact; d(scale)/
-   d(shift), f32 sums over the whole map in another order, within rtol 1e-4
-   plus 1e-4 of their largest value. The RoIPool forward (K1) and the stem
-   pool backward (K6) are also held, bit-exact, at ragged shapes in bf16
-   and f32 (ROI_RAGGED, BN_RAGGED), and timed ten times each in a row,
-   with every timing, the spread, the achieved GB/s and the bound's share
-   of the time; K1's line adds how often its bins re-read a covered pixel,
-   its largest bin, and the time of the bin bounds by their kernel (K3's
-   first launch, on the rule K1 applies in its own kernel; held bit for bit
-   against ``roi_bounds`` at every shape) and by the plain PyTorch chain. The build line lists both kernels'
-   registers and spills.
+   rows), in bf16 and f32, and must be bit-exact. The backward kernels run
+   at the train batch (B = 5, P = 232) on inputs rounded to a coarse grid,
+   so ties are common and the tie rules run, in bf16 and f32: dfm and dys
+   must be bit-exact; d(scale)/d(shift), f32 sums over the whole map in
+   another order, within rtol 1e-4 plus 1e-4 of their largest value. Every
+   pool kernel is also held, bit-exact, at ragged shapes in bf16 and f32
+   (ROI_RAGGED for the RoIPool forward and backward, the backward once more
+   with a pair list so small that its tiles walk several lists; BN_RAGGED
+   for the stem pool backward; BN_FWD_RAGGED for its forward, from an
+   aligned ys and from one 8 bytes past a 16-byte boundary), and timed ten
+   times each in a row at the flagship shape, with every timing, the
+   spread, the achieved GB/s and the bound's share of the time. K1's line
+   adds how often its bins re-read a covered pixel, its largest bin, and
+   the time of the bin bounds by their kernel (K3's first launch, on the
+   rule K1 applies in its own kernel; held bit for bit against
+   ``roi_bounds`` at every shape) and by the plain PyTorch chain; K3's adds
+   the (box, bin) pairs its tiles list (mean, largest, share of empty
+   tiles). The build line lists the pool kernels' registers and spills and
+   what ``cuobjdump -sass`` shows of the K5 and K3 kernels (instructions,
+   CALLs, 64-bit division routines).
 4. serve: ``cova_tpu_torch.cli.main(["predict", ...])`` at full width (1280^2,
    P = 232, -cs 12, -hd 384, bf16) with a randomly initialised model from a
    seeded ``torch.Generator``, with every kernel's launch count set to 0
@@ -73,7 +79,9 @@ Phases, each printing one JSON line:
 8. backbones: the full ``resnet18`` under the opt-in (the kernel at 128,
    256 and 512 channels) and ``resnet50_stem`` with and without
    ``COVA_REMAT=1``, at 640^2 and B = 2: logits against the plain-op path,
-   train steps, peak memory.
+   train steps, peak memory; ``resnet18``'s four steps also run a second
+   time under cuDNN, and in f32 (TF32 off) through cuDNN, the kernel and the
+   plain nine-product conv, with the gaps between their last losses.
 
 The train phase also feeds batches through the device prefetcher and holds
 them against the host batches byte for byte.
@@ -239,6 +247,13 @@ ROI_RAGGED = ((2, 37, 29, 64, 40, 3, 3), (2, 13, 50, 6, 20, 2, 4),
 BN_RAGGED = ((1, 1, 1, 2), (2, 7, 9, 64), (1, 9, 7, 6), (2, 9, 1, 64),
              (1, 1, 9, 512), (1, 17, 15, 64), (2, 7, 7, 512),
              (1, 9, 17, 64), (2, 7, 15, 6), (1, 1, 33, 64))
+# Fused BN+ReLU+pool forward (K5) checks: (B, U, V, O). U and V of 1, one
+# below and one above the kernel's 8 x 16 tile, and more than one tile;
+# O of 2 and 6, where the kernel copies pairs of channels by cp.async, 8
+# (one chunk) and 512 (many). Each is run from a 16-byte aligned ys and
+# from one 8 bytes past it (pairs of channels, by cp.async).
+BN_FWD_RAGGED = ((1, 1, 1, 2), (2, 7, 15, 64), (1, 9, 17, 6), (2, 17, 33, 8),
+                 (1, 1, 16, 64), (1, 8, 1, 512), (2, 9, 31, 512))
 
 
 def ragged_boxes(torch, gen, b, p, h, w, dev):
@@ -262,20 +277,45 @@ def ragged_boxes(torch, gen, b, p, h, w, dev):
     return boxes, mask
 
 
+def _template_args(s: str):
+    """The template arguments at the start of an Itanium-mangled list
+    (after its ``I``): types as f32 / bf16, literals as their values."""
+    import re
+
+    args, k = [], 0
+    while k < len(s) and s[k] != "E":
+        if s[k] == "L":  # a literal: L <type> <value> E
+            end = s.index("E", k)
+            kind, val = s[k + 1], s[k + 2 : end]
+            args.append({"b": {"1": "true", "0": "false"}.get(val, val)}.get(
+                kind, val))
+            k = end + 1
+        elif s[k].isdigit():  # a named type: <length> <name>
+            n = re.match(r"\d+", s[k:]).group()
+            name = s[k + len(n) : k + len(n) + int(n)]
+            args.append("bf16" if "bfloat16" in name else name)
+            k += len(n) + int(n)
+        elif s[k] == "f":
+            args.append("f32")
+            k += 1
+        else:
+            break
+    return args
+
+
 def ptxas_report(log: str, kernels):
     """Registers and spill bytes of the named kernels from ptxas -v, keyed
-    by name and template arguments (f: float, 13__nv_bfloat16: bf16)."""
+    by name and template arguments (e.g. ``bn_relu_pool_fwd_kernel<bf16,8,
+    true>``)."""
     import re
 
     rows, name = {}, None
     alt = "|".join(kernels)
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(" + alt + r")I(\w+?)E",
+        m = re.search(r"Compiling entry function '\S*?(" + alt + r")I(\w+)",
                       line)
         if m:
-            args = m.group(2).replace("13__nv_bfloat16", "bf16").replace(
-                "Li", ",").replace("f,", "f32,").strip(",")
-            name = f"{m.group(1)}<{args}>"
+            name = f"{m.group(1)}<{','.join(_template_args(m.group(2)))}>"
             rows[name] = {}
         elif name and "spill stores" in line:
             n = re.findall(r"(\d+) bytes", line)
@@ -288,6 +328,37 @@ def ptxas_report(log: str, kernels):
     return rows
 
 
+def sass_report(build, kernels):
+    """What ``cuobjdump -sass`` shows of the named kernels in the built
+    libraries ({library: kernel name}): per instantiation, its instruction
+    count, its CALL instructions (nvcc calls a subroutine for a 64-bit
+    division or remainder) and the 64-bit integer division or remainder
+    routines it names. None where the toolkit has no cuobjdump."""
+    import re
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    rows = {}
+    for lib, kernel in kernels.items():
+        dump = subprocess.run([tool, "-sass", build._lib_path(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for part in dump.split("Function : ")[1:]:
+            mangled = part.split()[0]
+            m = re.search(kernel + r"I(\w+)", mangled)
+            if not m:
+                continue
+            body = [ln for ln in part.splitlines()
+                    if re.search(r"/\*[0-9a-f]{4}\*/", ln)]
+            rows[f"{kernel}<{','.join(_template_args(m.group(1)))}>"] = dict(
+                instructions=len(body),
+                calls=sum(" CALL" in ln for ln in body),
+                div64_routines=sorted({r for ln in body for r in re.findall(
+                    r"__\w*(?:div|rem)\w*64\w*", ln)}))
+    return rows
+
+
 def phase_kernels(torch, dev):
     from cova_tpu_torch.ops.bn_pool import (
         bn_relu_pool_s2d,
@@ -295,9 +366,12 @@ def phase_kernels(torch, dev):
         bn_relu_pool_s2d_backward_reference,
         bn_relu_pool_s2d_reference,
         bwd_plan,
+        fwd_plan,
     )
     from cova_tpu_torch.ops.roi_pool import (
         roi_bounds,
+        roi_bwd_plan,
+        roi_bwd_tile_pairs,
         roi_pool,
         roi_pool_backward,
         roi_pool_backward_reference,
@@ -379,35 +453,94 @@ def phase_kernels(torch, dev):
         )
         del fm, got, want
 
-    ys = torch.randn(B, h, w, 256, generator=gen, device=dev).to(
-        torch.bfloat16)
+    # K5 away from the flagship shape, bit-exact, then at it (bf16 and f32).
+    def check_fwd(ys, scale, shift, tag):
+        got = bn_relu_pool_s2d(ys, scale, shift)
+        want = bn_relu_pool_s2d_reference(ys, scale, shift)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max()) if \
+            got.numel() else 0.0
+        need(err == 0.0, f"{tag} differs from its plain version by {err}")
+        return err
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for b_, u, v, o in BN_FWD_RAGGED:
+            scale = torch.rand(o, generator=gen, device=dev) + 0.5
+            shift = torch.randn(o, generator=gen, device=dev) * 0.5
+            for offset in (0, 8 // torch.empty((), dtype=dtype).element_size()):
+                n = b_ * u * v * 4 * o
+                flat = tied(torch, gen, (n + offset,), dtype, dev, 8.0)
+                ys = flat[offset:].view(b_, u, v, 4 * o)  # 8 mod 16 bytes
+                tag = (f"bn_relu_pool_fwd_{b_}x{u}x{v}x{o}_{dtype}"
+                       + ("_unaligned" if offset else ""))
+                checks[tag] = dict(
+                    max_abs_err=check_fwd(ys, scale, shift, tag),
+                    plan=fwd_plan(dtype, b_, u, v, o,
+                                  aligned=ys.data_ptr() % 16 == 0)._asdict())
     scale = torch.rand(64, generator=gen, device=dev) + 0.5
     shift = torch.randn(64, generator=gen, device=dev)
-    got = bn_relu_pool_s2d(ys, scale, shift)
-    want = bn_relu_pool_s2d_reference(ys, scale, shift)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    need(err == 0.0, f"bn_relu_pool_s2d differs from its plain version by "
-                     f"{err}")
-    n_out = B * h * w * 64
-    n_bytes = ys.numel() * 2 + 2 * 64 * 4 + n_out * 2
-    bms, by = bound_ms(n_bytes, n_out * (9 * 3 + 1))
-    results["bn_relu_pool_fwd"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: bn_relu_pool_s2d(ys, scale, shift),
-                   reps=20, warmup=3),
-        plain_ms=cuda_ms(
-            torch, lambda: bn_relu_pool_s2d_reference(ys, scale, shift),
-            reps=5),
-        bound_ms=bms, bound_by=by, bytes=n_bytes, operations=n_out * 28,
-        shape=list(ys.shape), dtype="torch.bfloat16",
-    )
-    del ys, got, want
+    for dtype in (torch.bfloat16, torch.float32):
+        ys = torch.randn(B, h, w, 256, generator=gen, device=dev).to(dtype)
+        name = "bn_relu_pool_fwd" + ("" if dtype == torch.bfloat16 else "_f32")
+        err = check_fwd(ys, scale, shift, name)
+        isz = ys.element_size()
+        n_out = B * h * w * 64
+        n_bytes = ys.numel() * isz + 2 * 64 * 4 + n_out * isz
+        n_ops = n_out * (9 * 3 + 1)  # nine affines and maxima, one ReLU
+        bms, by = bound_ms(n_bytes, n_ops)
+        t = timings(torch, lambda: bn_relu_pool_s2d(ys, scale, shift),
+                    reps=20)
+        results[name] = dict(
+            max_abs_err=err, **t,
+            plain_ms=cuda_ms(
+                torch, lambda: bn_relu_pool_s2d_reference(ys, scale, shift),
+                reps=3),
+            bound_ms=bms, bound_by=by, bytes=n_bytes, operations=n_ops,
+            achieved_gb_per_s=n_bytes / t["ms"] / 1e6,
+            bound_share=bms / t["ms"],
+            plan=fwd_plan(dtype, B, h, w, 64)._asdict(),
+            shape=list(ys.shape), dtype=str(dtype),
+        )
+        del ys
+
+    # K3 away from the flagship shape, bit-exact on tied inputs; the first
+    # shape again with a pair list of 8 and a stage chunk of 3 pairs, so its
+    # tiles walk their pairs in several lists and chunks.
+    for dtype in (torch.bfloat16, torch.float32):
+        for k, (b_, h_, w_, c, p_, oh, ow) in enumerate(ROI_RAGGED):
+            fm = tied(torch, gen, (b_, h_, w_, c), dtype, dev, 2.0)
+            boxes_r, mask_r = ragged_boxes(torch, gen, b_, p_, h_, w_, dev)
+            pooled = roi_pool_reference(fm, boxes_r, mask_r, 0.25, oh, ow)
+            g = torch.randn(pooled.shape, generator=gen, device=dev).to(dtype)
+            args = (fm, boxes_r, mask_r, pooled, g, 0.25, oh, ow)
+            want = roi_pool_backward_reference(*args)
+            plans = [None]
+            if k == 0:
+                plans.append(roi_bwd_plan(dtype, b_, p_, h_, w_, c, oh, ow,
+                                          cap=8, round_=4, chunk=3))
+            for plan in plans:
+                tag = (f"roi_pool_bwd_{b_}x{h_}x{w_}x{c}_P{p_}_{oh}x{ow}_"
+                       f"{dtype}" + ("_cap8" if plan else ""))
+                got = roi_pool_backward(*args, plan=plan)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                need(err == 0.0, f"{tag} differs from its plain version by "
+                                 f"{err}")
+                checks[tag] = dict(max_abs_err=err, plan=(plan or roi_bwd_plan(
+                    dtype, b_, p_, h_, w_, c, oh, ow))._asdict())
 
     # The backward kernels at the train batch, on tied inputs.
     boxes, mask = synthetic_boxes(torch, dev, TRAIN_B)
     b, p = mask.shape
     covered, bin_px = roi_work(torch, boxes, mask, h, w)
+    pairs = roi_bwd_tile_pairs(roi_bounds(boxes, mask, 0.25, 3, 3, h, w), h,
+                               w, 3, 3).float()
+    tile_pairs = dict(tile=list(roi_bwd_plan(torch.bfloat16, b, p, h, w, 64,
+                                             3, 3).tile),
+                      n_tiles=pairs.numel(), mean=float(pairs.mean()),
+                      largest=int(pairs.max()),
+                      empty_share=float((pairs == 0).float().mean()),
+                      total=int(pairs.sum()))
     for dtype in (torch.bfloat16, torch.float32):
         fm = tied(torch, gen, (b, h, w, 64), dtype, dev, 2.0)
         pooled = roi_pool_reference(fm, boxes, mask, 0.25)
@@ -425,13 +558,15 @@ def phase_kernels(torch, dev):
         n_ops = bin_px * 64 * 2
         bms, by = bound_ms(n_bytes, n_ops)
         name = "roi_pool_bwd" + ("" if dtype == torch.bfloat16 else "_f32")
+        t = timings(torch, lambda: roi_pool_backward(*args), reps=20)
         results[name] = dict(
-            max_abs_err=err,
-            ms=cuda_ms(torch, lambda: roi_pool_backward(*args), reps=20,
-                       warmup=3),
+            max_abs_err=err, **t,
             plain_ms=cuda_ms(torch, lambda: roi_pool_backward_reference(
                 *args), reps=1),
             bound_ms=bms, bound_by=by, bytes=n_bytes, operations=n_ops,
+            achieved_gb_per_s=n_bytes / t["ms"] / 1e6,
+            bound_share=bms / t["ms"], tile_pairs=tile_pairs,
+            plan=roi_bwd_plan(dtype, b, p, h, w, 64, 3, 3)._asdict(),
             valid_boxes=int(mask.sum()), shape=list(fm.shape), P=P,
             dtype=str(dtype), tied_dfm_share=float(
                 (want.float().abs() > 0).float().mean()),
@@ -1272,6 +1407,7 @@ def phase_backbones(torch, dev):
     from cova_tpu_torch.data.pipeline import make_eval_pipeline
     from cova_tpu_torch.data.synthetic import InMemoryWebDataset
     from cova_tpu_torch.models.cova import build_model
+    from cova_tpu_torch.ops import conv3x3 as conv_mod
     from cova_tpu_torch.train.steps import forward_step
 
     size, b = 640, 2
@@ -1305,6 +1441,44 @@ def phase_backbones(torch, dev):
                                      f"resnet18 train step, expected 27")
             row["step"] = timed_steps(torch, cfg, dev, batch, reps=3,
                                       warmup=1)
+            # The same four steps again under cuDNN, and in f32 (TF32 off)
+            # through three correct convs: cuDNN, K7 and the plain
+            # nine-product conv. How far the last loss moves between two
+            # runs of one path and between correct convs, beside the gap
+            # between K7 and cuDNN.
+            row["step_again"] = timed_steps(torch, cfg, dev, batch, reps=3,
+                                            warmup=1)
+            f32 = cfg.replace(compute_dtype="float32")
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                with conv_opt_in():
+                    row["step_opt_in_f32"] = timed_steps(
+                        torch, f32, dev, batch, reps=3, warmup=1)
+                row["step_f32"] = timed_steps(torch, f32, dev, batch, reps=3,
+                                              warmup=1)
+                before = launch_counts()["conv3x3_fwd"]
+                with conv_opt_in(watch=False), mock.patch.object(
+                        conv_mod, "conv3x3", conv_mod.conv3x3_plain):
+                    row["step_plain_conv_f32"] = timed_steps(
+                        torch, f32, dev, batch, reps=3, warmup=1)
+                need(launch_counts()["conv3x3_fwd"] == before,
+                     "K7 launched in the plain-conv run")
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            last = {k: row[k]["last_loss"] for k in (
+                "step", "step_again", "step_opt_in", "step_f32",
+                "step_opt_in_f32", "step_plain_conv_f32")}
+            row["last_loss_gaps"] = dict(
+                cudnn_run_to_run=abs(last["step"] - last["step_again"]),
+                opt_in_vs_cudnn_bf16=abs(last["step_opt_in"] - last["step"]),
+                bf16_vs_f32_cudnn=abs(last["step"] - last["step_f32"]),
+                opt_in_vs_cudnn_f32=abs(last["step_opt_in_f32"]
+                                        - last["step_f32"]),
+                plain_vs_cudnn_f32=abs(last["step_plain_conv_f32"]
+                                       - last["step_f32"]),
+                opt_in_vs_plain_f32=abs(last["step_opt_in_f32"]
+                                        - last["step_plain_conv_f32"]))
             steps = DEEP_LOGIT_STEPS
         else:
             out = forward_step(model, batch)
@@ -1321,7 +1495,8 @@ def phase_backbones(torch, dev):
             need(r["peak_memory_bytes"] < a["peak_memory_bytes"],
                  f"remat did not lower peak memory: {r} vs {a}")
             steps = CONV_LOGIT_STEPS
-        for key in ("step", "step_opt_in", "step_remat"):
+        for key in ("step", "step_again", "step_opt_in", "step_f32",
+                    "step_opt_in_f32", "step_plain_conv_f32", "step_remat"):
             if key in row:
                 need(row[key]["last_loss"] == row[key]["last_loss"],
                      f"{name} {key}: non-finite loss")
@@ -1334,28 +1509,6 @@ def phase_backbones(torch, dev):
         del model
         torch.cuda.empty_cache()
     return results
-
-
-def conv_bf16_build_report(log: str):
-    """Registers and spill bytes of the bf16 conv kernels from ptxas -v."""
-    import re
-
-    rows, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(conv3x3(?:_roll)?_fwd_bf16_kernel)"
-                      r"ILi(\d+)E", line)
-        if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
-            rows[name] = {}
-        elif name and "spill stores" in line:
-            n = re.findall(r"(\d+) bytes", line)
-            rows[name].update(stack=int(n[0]), spill_stores=int(n[1]),
-                              spill_loads=int(n[2]))
-        elif name and "Used" in line and "registers" in line:
-            rows[name]["registers"] = int(re.search(r"Used (\d+) registers",
-                                                    line).group(1))
-            name = None
-    return rows
 
 
 def main() -> int:
@@ -1385,11 +1538,16 @@ def main() -> int:
              if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": sorted(reports), "ptxas": ptxas,
-          "conv_bf16": conv_bf16_build_report(reports.get("conv3x3", "")),
+          "conv_bf16": ptxas_report(reports.get("conv3x3", ""), (
+              "conv3x3_fwd_bf16_kernel", "conv3x3_roll_fwd_bf16_kernel")),
           "pool": {**ptxas_report(reports.get("roi_pool", ""), (
-              "roi_pool_pyramid_kernel", "roi_pool_bins_kernel")),
+              "roi_pool_pyramid_kernel", "roi_pool_bins_kernel",
+              "roi_pool_bwd_kernel")),
               **ptxas_report(reports.get("bn_pool", ""), (
-                  "bn_relu_pool_bwd_kernel",))}})
+                  "bn_relu_pool_fwd_kernel", "bn_relu_pool_bwd_kernel"))},
+          "sass": sass_report(_build, {
+              "bn_pool": "bn_relu_pool_fwd_kernel",
+              "roi_pool": "roi_pool_bwd_kernel"})})
 
     # Phase names as arguments run those phases alone (for work on one of
     # them); the summary and the ok line come only from a whole run.

@@ -22,17 +22,30 @@
 // add as two rounded steps; nvcc would otherwise contract them.
 //
 // What bounds it on the H100: HBM bytes. It reads ys once (B x 320 x 320 x
-// 256 bf16, 524 MB at B = 10) and writes a quarter of that; about 28 f32
-// operations per output are far below the card's rate.
+// 256 bf16, 524 MB at B = 10) and writes a quarter of that; about 20 f32
+// operations per output and channel are far below the card's rate.
 //
-// Design: one thread per output (b, i, j, pair of channels f, f+1), with
-// the channel pair fastest, so a warp reads 128 contiguous bytes of one
-// phase group for each tap and writes 128 contiguous bytes. Each input is
-// read by up to four outputs' taps (the rows and columns shared between
-// neighbouring windows); those repeats hit L1/L2, so HBM sees each byte of
-// ys about once. The TPU kernel's roll-based three-stage factorization and
-// row tiles with a halo fit the TPU's vector layout and are not carried
-// over.
+// Design (the kernel is further down, after the backward's helpers, which it
+// shares): persistent blocks, each keeping one chunk of FC channels f (of
+// each of the four phase groups) and walking tiles of kFwdU x kFwdV s2d
+// blocks. A tile's ys, with one halo row above and one halo column to the
+// left (where the taps of rows i-1 and columns j-1 reach), comes into shared
+// memory through a ring of stages, so the next tiles arrive while the block
+// works on this one: by TMA (one thread issues a 5-D box) where a thread
+// moves 16 bytes of channels, else by every thread's cp.async. A thread owns one output column of the tile
+// and one vector of N channels, walks its rows top down and keeps the row
+// above's column-stage values of the ey = 1 groups in registers, so each
+// staged element gets its affine about once and each output reads six
+// vectors (four groups here, two to the left), not nine. The maxima run in
+// the TPU kernel's order: column stage (ex = 1 groups against column j-1),
+// row stage (ey = 1 groups against row i-1), then the four groups; then
+// ReLU, one rounding and one 16-byte store. TMA's zero fill is not the
+// pool's padding (-inf after the affine): the halo row of the map's first
+// tile row and the halo column of its first tile column are replaced by
+// -inf, as the TPU kernel masks them. Offsets inside a tile are 32-bit and
+// the tile is a compile-time shape, so the per-element path has no 64-bit
+// division (the earlier kernel, a thread per output that split a 64-bit
+// index by five divisions, ran at 38% of the bound on the H100; PERF.md).
 
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -40,88 +53,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-template <typename T> struct Pair;
-
-template <> struct Pair<float> {
-  __device__ static void load(const float* p, float& a, float& b) {
-    float2 v = *reinterpret_cast<const float2*>(p);
-    a = v.x;
-    b = v.y;
-  }
-  __device__ static void store(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
-};
-
-template <> struct Pair<__nv_bfloat16> {
-  __device__ static void load(const __nv_bfloat16* p, float& a, float& b) {
-    __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-    a = __low2float(v);
-    b = __high2float(v);
-  }
-  __device__ static void store(__nv_bfloat16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  }
-};
-
-// ys: [B, U, V, 4*O]; scale, shift: f32 [O]; out: [B, U, V, O].
-template <typename T>
-__global__ void bn_relu_pool_fwd_kernel(const T* __restrict__ ys,
-                                        const float* __restrict__ scale,
-                                        const float* __restrict__ shift,
-                                        T* __restrict__ out, long long total,
-                                        int U, int V, int O) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int half = O / 2;
-  const int f = 2 * (int)(t % half);
-  long long rest = t / half;
-  const int j = (int)(rest % V);
-  rest /= V;
-  const int i = (int)(rest % U);
-  const long long b = rest / U;
-
-  const float s0 = __ldg(scale + f), s1 = __ldg(scale + f + 1);
-  const float h0 = __ldg(shift + f), h1 = __ldg(shift + f + 1);
-  const int c4 = 4 * O;
-  const T* img = ys + b * U * V * c4;
-
-  // (block shift, phase) of the three taps along one axis.
-  const int dsh[3] = {-1, 0, 0};
-  const int ph[3] = {1, 0, 1};
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    const int u = i + dsh[r];
-    if (u < 0) continue;  // top padding
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      const int v = j + dsh[q];
-      if (v < 0) continue;  // left padding
-      const int c = (ph[r] * 2 + ph[q]) * O + f;
-      float a, e;
-      Pair<T>::load(img + ((long long)u * V + v) * c4 + c, a, e);
-      m0 = fmaxf(m0, __fadd_rn(__fmul_rn(a, s0), h0));
-      m1 = fmaxf(m1, __fadd_rn(__fmul_rn(e, s1), h1));
-    }
-  }
-  Pair<T>::store(out + t * 2, fmaxf(m0, 0.f), fmaxf(m1, 0.f));
-}
-
-template <typename T>
-int launch(const void* ys, const void* scale, const void* shift, void* out,
-           int B, int U, int V, int O, void* stream) {
-  const long long total = (long long)B * U * V * (O / 2);
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  bn_relu_pool_fwd_kernel<T><<<(unsigned)blocks, threads, 0,
-                               (cudaStream_t)stream>>>(
-      static_cast<const T*>(ys), static_cast<const float*>(scale),
-      static_cast<const float*>(shift), static_cast<T*>(out), total, U, V, O);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------- backward
 //
@@ -184,25 +115,6 @@ int launch(const void* ys, const void* scale, const void* shift, void* out,
 template <typename T> struct BwdTile {
   static constexpr int U = 8, V = sizeof(T) == 2 ? 16 : 8;
 };
-
-// One asynchronous copy of BYTES from global memory to the shared-memory
-// address d.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(unsigned d, const void* src) {
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-                 "l"(src), "n"(BYTES));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
-}
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -643,6 +555,247 @@ int launch_bwd(const void* ys, const void* scale, const void* shift,
   return (int)cudaGetLastError();
 }
 
+// ----------------------------------------------------------------- forward
+
+// s2d blocks per forward tile (ops/bn_pool.py::FWD_TILE), and the stage of
+// one tile: ys rows u0-1 .. u0+kFwdU-1, each as [4 groups][kFwdV + 1
+// columns v0-1 .. v0+kFwdV-1][FC], groups before columns as in the
+// backward's tiles; rounded up to 128 bytes (a TMA destination).
+constexpr int kFwdU = 8, kFwdV = 16;
+constexpr int kFwdRows = kFwdU + 1, kFwdCols = kFwdV + 1;
+constexpr int kFwdMaxThreads = 256;
+
+__host__ __device__ constexpr int fwd_stage_bytes(int fc, int itemsize) {
+  return (kFwdRows * 4 * kFwdCols * fc * itemsize + 127) & ~127;
+}
+
+// Waits until at most n of this thread's cp.async groups are pending.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
+// grid: n_chunks * n_walkers blocks; block: FC / N * kFwdV * RS threads
+// (thread: vector cv of the chunk, output column oj, row split rs); dynamic
+// shared memory: the plan's bytes (ops/bn_pool.py::fwd_plan): `stages`
+// tile stages, then one mbarrier per stage. Block x keeps channel chunk
+// x % n_chunks and walks the tiles x / n_chunks, + n_walkers, ... Where a
+// thread moves 16 bytes (kTma), one thread loads each tile through ymap (ys as [B][U][4][V][O], box FC x
+// (kFwdV + 1) x 4 x (kFwdU + 1) from (u0 - 1, v0 - 1)); else every thread
+// copies vectors with cp.async and skips positions outside the map (the
+// taps that reach them are the padding, replaced by -inf, or belong to
+// outputs outside the map, which are not stored).
+template <typename T, int N>
+__global__ void __launch_bounds__(kFwdMaxThreads)
+bn_relu_pool_fwd_kernel(const __grid_constant__ CUtensorMap ymap,
+                        const T* __restrict__ ys,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ shift, T* __restrict__ out,
+                        int B, int U, int V, int O, int FC, int RS,
+                        int stages) {
+  constexpr bool kTma = N * sizeof(T) == 16;
+  using Vv = Vec<T, N>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const unsigned raw_u32 = (unsigned)__cvta_generic_to_shared(smem_raw);
+  const unsigned smem_u32 = (raw_u32 + 127) & ~127u;
+  unsigned char* const smem = smem_raw + (smem_u32 - raw_u32);
+  const int stage_bytes = fwd_stage_bytes(FC, (int)sizeof(T));
+  const unsigned bar0 = smem_u32 + (unsigned)(stages * stage_bytes);
+
+  const int n_chunks = O / FC;
+  const int chunk = blockIdx.x % n_chunks;
+  const int walker = blockIdx.x / n_chunks;
+  const int n_walkers = gridDim.x / n_chunks;
+  const int FV = FC / N;  // vectors per group segment
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int cv = tid % FV, oj = (tid / FV) % kFwdV, rs = tid / (FV * kFwdV);
+  const int R = kFwdU / RS, r0 = rs * R;  // this thread's output rows
+  const int f0 = chunk * FC + cv * N;     // its first channel f
+  const int c4 = 4 * O;
+
+  float sc[N], sh[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    sc[k] = scale[f0 + k];
+    sh[k] = shift[f0 + k];
+  }
+  if (kTma && tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tiles_u = (U + kFwdU - 1) / kFwdU;
+  const int tiles_v = (V + kFwdV - 1) / kFwdV;
+  const int n_tiles = B * tiles_u * tiles_v;  // < 2^31 (the plan checks)
+  const int n_mine = walker < n_tiles ? (n_tiles - 1 - walker) / n_walkers + 1
+                                      : 0;
+  // cp.async roles: lane (group, vector), pixel slot.
+  const int lanes = 4 * FV, ny = nt / lanes;
+  const int cgrp = (tid % lanes) / FV, ccv = tid % FV, cpy = tid / lanes;
+
+  // Copies of the walk's tile number `it` into stage it % stages.
+  auto load = [&](int it) {
+    if (it >= n_mine) return;
+    const int t = walker + it * n_walkers;
+    const int tv = t % tiles_v, bt = t / tiles_v;
+    const int tu = bt % tiles_u, b = bt / tiles_u;
+    const int u0 = tu * kFwdU, v0 = tv * kFwdV;
+    const int s = it % stages;
+    const unsigned stage = smem_u32 + (unsigned)(s * stage_bytes);
+    if constexpr (kTma) {
+      if (tid == 0) {
+        const unsigned bar = bar0 + 8 * s;
+        // Earlier reads of this stage come before the copy's writes.
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_expect_tx(bar, (unsigned)(kFwdRows * 4 * kFwdCols * FC *
+                                       (int)sizeof(T)));
+        tma_load_5d(stage, &ymap, bar, chunk * FC, v0 - 1, 0, u0 - 1, b);
+      }
+    } else {
+      const T* src = ys + (((long long)b * U + u0) * V + v0) * c4 +
+                     cgrp * O + chunk * FC + ccv * N;
+      for (int pix = cpy; pix < kFwdRows * kFwdCols; pix += ny) {
+        const int r = pix / kFwdCols, c = pix % kFwdCols;
+        if ((unsigned)(u0 + r - 1) >= (unsigned)U ||
+            (unsigned)(v0 + c - 1) >= (unsigned)V)
+          continue;
+        cp_async<(int)sizeof(Vv)>(
+            stage + (unsigned)((((r * 4 + cgrp) * kFwdCols + c) * FC +
+                                ccv * N) * (int)sizeof(T)),
+            src + ((r - 1) * V + c - 1) * c4);
+      }
+    }
+  };
+
+  for (int it = 0; it < stages - 1; ++it) {
+    load(it);
+    if constexpr (!kTma) cp_async_commit();
+  }
+  const float ninf = -CUDART_INF_F;
+  const int gs = kFwdCols * FC, rstride = 4 * gs;  // group, row strides
+  for (int it = 0; it < n_mine; ++it) {
+    load(it + stages - 1);
+    const int s = it % stages;
+    if constexpr (kTma) {
+      mbar_wait(bar0 + 8 * s, (unsigned)(it / stages) & 1);
+    } else {
+      cp_async_commit();
+      cp_async_wait_upto(stages - 1);  // this tile's copies have landed
+      __syncthreads();
+    }
+
+    const int t = walker + it * n_walkers;
+    const int tv = t % tiles_v, bt = t / tiles_v;
+    const int tu = bt % tiles_u, b = bt / tiles_u;
+    const int u0 = tu * kFwdU, v0 = tv * kFwdV;
+    const int j = v0 + oj;
+    if (j < V && u0 + r0 < U) {
+      const T* ysb = reinterpret_cast<const T*>(smem + s * stage_bytes);
+      // Stage row r0 holds map row u0 + r0 - 1; column oj + 1 holds j.
+      const T* here = ysb + r0 * rstride + (oj + 1) * FC + cv * N;
+      const bool left = j > 0, up = u0 + r0 > 0;
+      auto aff = [&](const T* p, float (&z)[N]) {
+        const Vv x = *reinterpret_cast<const Vv*>(p);
+#pragma unroll
+        for (int k = 0; k < N; ++k)
+          z[k] = __fadd_rn(__fmul_rn(to_f(x.v[k]), sc[k]), sh[k]);
+      };
+      // Column stage of group g at the row of `p`: max of columns j-1, j.
+      auto col = [&](const T* p, float (&z)[N]) {
+        float l[N];
+        aff(p, z);
+        aff(p - FC, l);
+#pragma unroll
+        for (int k = 0; k < N; ++k) z[k] = fmaxf(left ? l[k] : ninf, z[k]);
+      };
+      // The row above: groups 2 and 3 after the column stage.
+      float p2[N], p3[N];
+      aff(here + 2 * gs, p2);
+      col(here + 3 * gs, p3);
+      if (!up) {
+#pragma unroll
+        for (int k = 0; k < N; ++k) p2[k] = p3[k] = ninf;
+      }
+      T* dst = out + (((long long)b * U + u0 + r0) * V + j) * O + f0;
+      const int n_rows = min(R, U - u0 - r0);
+      for (int r = 0; r < n_rows; ++r) {
+        here += rstride;
+        float a0[N], a1[N], a2[N], a3[N];
+        aff(here, a0);
+        col(here + gs, a1);
+        aff(here + 2 * gs, a2);
+        col(here + 3 * gs, a3);
+        Vv o;
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          // Row stage (rows i-1, i) of groups 2 and 3, then the groups.
+          const float m = fmaxf(fmaxf(a0[k], a1[k]),
+                                fmaxf(fmaxf(p2[k], a2[k]), fmaxf(p3[k], a3[k])));
+          o.v[k] = from_f<T>(fmaxf(m, 0.f));
+          p2[k] = a2[k];
+          p3[k] = a3[k];
+        }
+        *reinterpret_cast<Vv*>(dst + r * V * O) = o;
+      }
+    }
+    __syncthreads();  // the stage is free for the load of tile it + stages
+  }
+  if constexpr (!kTma) cp_async_wait<0>();  // the groups past the walk's end
+}
+
+template <typename T, int N>
+int launch_fwd(const void* ys, const void* scale, const void* shift,
+               void* out, int B, int U, int V, int O, int FC, int RS,
+               int stages, int n_walkers, int smem_bytes, void* stream) {
+  const int threads = FC / N * kFwdV * RS;
+  if (FC < N || FC % N || O % FC || RS < 1 || kFwdU % RS || stages < 2 ||
+      stages > 4 || n_walkers < 1 || threads > kFwdMaxThreads ||
+      smem_bytes < 128 + stages * (fwd_stage_bytes(FC, sizeof(T)) + 8))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * U * V == 0) return 0;
+  CUtensorMap ymap{};
+  if (N * sizeof(T) == 16) {
+    const cuuint64_t sz = sizeof(T), o = O, v = V, u = U;
+    // ys [B][U][V][4][O] read as [B][U][4][V][O]: groups before columns.
+    const cuuint64_t yd[5] = {o, v, 4, u, (cuuint64_t)B};
+    const cuuint64_t yst[4] = {4 * o * sz, o * sz, v * 4 * o * sz,
+                               u * v * 4 * o * sz};
+    const cuuint32_t yb[5] = {(cuuint32_t)FC, kFwdCols, 4, kFwdRows, 1};
+    const int rc = encode<T>(&ymap, ys, 5, yd, yst, yb);
+    if (rc) return rc;
+  }
+  auto kernel = bn_relu_pool_fwd_kernel<T, N>;
+  const int rc = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (rc) return rc;
+  kernel<<<(O / FC) * n_walkers, threads, smem_bytes,
+           (cudaStream_t)stream>>>(
+      ymap, static_cast<const T*>(ys), static_cast<const float*>(scale),
+      static_cast<const float*>(shift), static_cast<T*>(out), B, U, V, O, FC,
+      RS, stages);
+  return (int)cudaGetLastError();
+}
+
+// The forward's entry: vec picks the instantiation (16 bytes' worth of
+// channels by TMA, or one pair of channels by cp.async).
+template <typename T, int NV>
+int fwd(const void* ys, const void* scale, const void* shift, void* out,
+        int B, int U, int V, int O, int vec, int fc, int rs, int stages,
+        int n_walkers, int smem_bytes, void* stream) {
+  if (vec == NV)
+    return launch_fwd<T, NV>(ys, scale, shift, out, B, U, V, O, fc, rs,
+                             stages, n_walkers, smem_bytes, stream);
+  if (vec == 2)
+    return launch_fwd<T, 2>(ys, scale, shift, out, B, U, V, O, fc, rs, stages,
+                            n_walkers, smem_bytes, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // ys: [B, U, V, 4*O] contiguous (O even, O <= 512); scale, shift: f32 [O];
@@ -688,16 +841,26 @@ extern "C" int bn_relu_pool_bwd_bf16(const void* ys, const void* scale,
   return (int)cudaErrorInvalidValue;
 }
 
-// ys: [B, U, V, 4*O] contiguous (O even); scale, shift: f32 [O];
-// out: [B, U, V, O]. Returns the cudaError_t of the launch.
+// ys: [B, U, V, 4*O] contiguous (O even, O <= 512); scale, shift: f32 [O];
+// out: [B, U, V, O]. vec: channels per access (16 bytes' worth, by TMA,
+// where O and the pointers allow; else 2, by cp.async); fc: channels per
+// chunk; rs: row splits of the tile; stages: tile stages in flight;
+// smem_bytes: the plan's (ops/bn_pool.py::fwd_plan).
+// Returns the cudaError_t of the launch.
 extern "C" int bn_relu_pool_fwd_f32(const void* ys, const void* scale,
                                     const void* shift, void* out, int B, int U,
-                                    int V, int O, void* stream) {
-  return launch<float>(ys, scale, shift, out, B, U, V, O, stream);
+                                    int V, int O, int vec, int fc, int rs,
+                                    int stages, int n_walkers, int smem_bytes,
+                                    void* stream) {
+  return fwd<float, 4>(ys, scale, shift, out, B, U, V, O, vec, fc, rs, stages,
+                       n_walkers, smem_bytes, stream);
 }
 
 extern "C" int bn_relu_pool_fwd_bf16(const void* ys, const void* scale,
                                      const void* shift, void* out, int B,
-                                     int U, int V, int O, void* stream) {
-  return launch<__nv_bfloat16>(ys, scale, shift, out, B, U, V, O, stream);
+                                     int U, int V, int O, int vec, int fc,
+                                     int rs, int stages, int n_walkers,
+                                     int smem_bytes, void* stream) {
+  return fwd<__nv_bfloat16, 8>(ys, scale, shift, out, B, U, V, O, vec, fc, rs,
+                               stages, n_walkers, smem_bytes, stream);
 }

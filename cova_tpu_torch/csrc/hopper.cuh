@@ -1,5 +1,6 @@
 // Helpers shared by the Hopper (sm_90a) kernels of this directory: vectors
-// of a fixed width, mbarriers, TMA tile loads and the tensor-map encoder.
+// of a fixed width, mbarriers, cp.async copies, TMA tile loads and the
+// tensor-map encoder.
 // Each kernel source includes this header and is built on its own
 // (ops/_build.py hashes the headers with each source).
 
@@ -45,6 +46,27 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// ------------------------------------------------------------- cp.async
+
+// One asynchronous copy of BYTES (4, 8 or 16) from global memory to the
+// shared-memory address d.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(unsigned d, const void* src) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
 // ------------------------------------------------- TMA tile loads (by rank)

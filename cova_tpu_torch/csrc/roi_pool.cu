@@ -119,14 +119,17 @@ __device__ __forceinline__ void bin_range(int s, int len, int k, int n,
   hi = min(max(((k + 1) * len + n - 1) / n + s, 0), limit);
 }
 
-// The bounds of every box, one thread per (image, box).
-// grid: ceil(n_boxes / 128) blocks of 128; n_boxes = B * P.
+// The bounds of every box, one thread per (image, box); the first thread
+// also zeroes the backward kernel's tile counter where there is one.
+// grid: max(ceil(n_boxes / 128), 1) blocks of 128; n_boxes = B * P.
 __global__ void roi_pool_bounds_kernel(const float* __restrict__ boxes,
                                        const unsigned char* __restrict__ mask,
-                                       int* __restrict__ bounds, int n_boxes,
+                                       int* __restrict__ bounds,
+                                       int* __restrict__ counter, int n_boxes,
                                        int H, int W, int out_h, int out_w,
                                        float scale) {
   const int bp = blockIdx.x * blockDim.x + threadIdx.x;
+  if (bp == 0 && counter != nullptr) *counter = 0;
   if (bp >= n_boxes) return;
   const int nb = 2 * out_h + 2 * out_w;
   int* bd = bounds + (long long)bp * nb;
@@ -143,16 +146,16 @@ __global__ void roi_pool_bounds_kernel(const float* __restrict__ boxes,
 }
 
 int launch_roi_bounds(const void* boxes, const void* mask, void* bounds,
-                      int B, int P, int H, int W, int out_h, int out_w,
-                      float scale, void* stream) {
+                      int* counter, int B, int P, int H, int W, int out_h,
+                      int out_w, float scale, void* stream) {
   const long long n = (long long)B * P;
-  if (n == 0) return 0;
+  if (n == 0 && counter == nullptr) return 0;
   if (n > 2147483647LL) return (int)cudaErrorInvalidValue;
-  roi_pool_bounds_kernel<<<(unsigned)((n + 127) / 128), 128, 0,
+  roi_pool_bounds_kernel<<<(unsigned)(n > 0 ? (n + 127) / 128 : 1), 128, 0,
                            (cudaStream_t)stream>>>(
       static_cast<const float*>(boxes),
       static_cast<const unsigned char*>(mask), static_cast<int*>(bounds),
-      (int)n, H, W, out_h, out_w, scale);
+      counter, (int)n, H, W, out_h, out_w, scale);
   return (int)cudaGetLastError();
 }
 
@@ -350,146 +353,320 @@ template <> struct Pair<__nv_bfloat16> {
 // every tied maximum gets the full cotangent, empty bins and masked boxes
 // (all-zero bounds) add nothing.
 //
-// Design: a gather, deterministic and free of atomics. A block owns a tile
-// of TILE_Y x TILE_X pixels of one image. Its threads first build, in shared
-// memory and in ascending box order, the list of boxes whose outer range
-// meets the tile (a ballot and a prefix count per chunk of boxes). Then each
-// warp takes one row of the tile, two channels per thread (a pixel's 64
-// channels are one 128-byte bf16 row of the NHWC map), keeps the tile row's
-// fm values and f32 sums in registers, and walks the list: for each bin
-// holding the pixel, it compares and adds. Each pixel's contributions are
-// added in f32 in (box, bin row, bin column) order, the order of the plain
-// version's loop, and written once in fm.dtype: the result equals the plain
-// version bit for bit, and every pixel of the map is written, so dfm needs
-// no zero fill.
-//
 // What bounds it on the H100: HBM bytes, the map read where boxes cover it,
 // pooled and g read, and dfm written whole (13 MB per bf16 image at the
-// flagship shape). The list keeps the per-pixel work to the boxes that meet
-// the tile; each warp still re-reads a box's bounds and its bins' pooled and
-// g rows from L1/L2.
+// flagship shape). What held the earlier kernel (a block per 8 x 8 pixels,
+// each warp walking its tile's boxes and loading every box's and bin's
+// bounds and every bin's pooled and g rows from L1/L2 one after another) was
+// latency: 14% of the bound, f32 no slower than bf16 (PERF.md).
+//
+// Design: a gather, deterministic and free of atomics on dfm. Persistent
+// blocks take tiles of 8 x 8 pixels of one image from a counter (zeroed by
+// the bounds kernel just before), so a tile under twenty nested boxes and an
+// empty one each hold a block only as long as their work. For each tile:
+//   1. the boxes whose outer range meets the tile, in ascending order, into
+//      shared memory (a ballot and a prefix count per round of boxes);
+//   2. the list of (box, bin) pairs that meet the tile, in ascending (box,
+//      bin row, bin column) order: one thread per candidate (listed box x
+//      bin) reads that bin's bounds, clips them to the tile and, where they
+//      meet it, is compacted into the list as (cell, a 64-bit map of the
+//      tile's pixels in the bin); where the list would overflow its
+//      capacity, the pairs so far are walked and the list starts again, in
+//      the same order;
+//   3. the walk, in chunks of `chunk` pairs: the pooled and g rows of the
+//      next chunk's bins are copied into shared memory (cp.async) while the
+//      block walks this chunk's, so every bound and operand of the walk is a
+//      shared-memory read. A thread owns one row of the tile (8 pixels) and
+//      one pair of channels, keeps their fm values and f32 sums in
+//      registers, takes its row's byte of each listed bin's pixel map, and
+//      compares and adds where it is set (a whole row with no tests).
+// What holds it now is measured by scripts/ablate_roi_bwd.py, which times
+// copies of this kernel with one stage left out (PERF.md): reading fm and
+// writing dfm whole, and the compare-and-add of the walk.
+// Each pixel's contributions are added in f32 in (box, bin row, bin column)
+// order, the order of the plain version's loop, and written once in
+// fm.dtype: the result equals the plain version bit for bit, and every
+// pixel of the map is written, so dfm needs no zero fill.
 
-constexpr int TILE_X = 8;  // pixels per warp (one row of the tile)
+constexpr int kBwdTile = 8;           // tile rows and columns
+constexpr int kBwdMaxThreads = 256;   // 32 channel-pair lanes x 8 rows
+constexpr unsigned long long kRowOnes = 0x0101010101010101ull;
 
-// grid: (ceil(W / TILE_X), ceil(H / rows), B); block: (32, rows) threads;
-// dynamic shared memory: P ints.
-template <typename T>
-__global__ void roi_pool_bwd_kernel(const T* __restrict__ fm,
-                                    const int* __restrict__ bounds,
-                                    const T* __restrict__ pooled,
-                                    const T* __restrict__ g,
-                                    T* __restrict__ dfm, int P, int H, int W,
-                                    int C, int out_h, int out_w) {
-  extern __shared__ int list[];
-  __shared__ int wcount[32];
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x, warp = threadIdx.y;
-  const int n_warps = blockDim.y;
-  const int ty0 = blockIdx.y * n_warps, tx0 = blockIdx.x * TILE_X;
-  const int nb = 2 * out_h + 2 * out_w;
-  const int* bd_img = bounds + (size_t)b * P * nb;
-
-  // 1. The boxes whose outer range meets the tile, in ascending order.
-  int n = 0;
-  for (int base = 0; base < P; base += 32 * n_warps) {
-    const int p = base + warp * 32 + lane;
-    bool hit = false;
-    if (p < P) {
-      const int* bd = bd_img + (size_t)p * nb;
-      const int y0 = bd[0], y1 = bd[2 * out_h - 1];
-      const int x0 = bd[2 * out_h], x1 = bd[nb - 1];
-      hit = y0 < y1 && x0 < x1 && y0 < ty0 + n_warps && y1 > ty0 &&
-            x0 < tx0 + TILE_X && x1 > tx0;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) wcount[warp] = __popc(ballot);
-    __syncthreads();
-    int off = n, chunk = 0;
-    for (int q = 0; q < n_warps; ++q) {
-      if (q < warp) off += wcount[q];
-      chunk += wcount[q];
-    }
-    if (hit) list[off + __popc(ballot & ((1u << lane) - 1u))] = p;
-    n += chunk;
-    __syncthreads();
+// A block's shared memory (ops/roi_pool.py::roi_bwd_plan mirrors it): two
+// stage buffers of `chunk` slots x (pooled row, g row) x `cv` channel pairs
+// (row stride rounded up to 16 bytes), the pair list as cell int[cap] and
+// pixel bitmap u64[cap], the box list int[P], the warps' counts and the
+// tile number.
+struct BwdSmem {
+  int row_bytes, stage_bytes, bits_off, cell_off, box_off, wcount_off, total;
+  __host__ __device__ BwdSmem(int cv, int pair_bytes, int chunk, int cap,
+                              int P) {
+    row_bytes = (cv * pair_bytes + 15) & ~15;
+    stage_bytes = chunk * 2 * row_bytes;
+    bits_off = 2 * stage_bytes;
+    cell_off = bits_off + cap * 8;
+    box_off = cell_off + ((cap * 4 + 15) & ~15);
+    wcount_off = box_off + ((P * 4 + 15) & ~15);
+    total = wcount_off + 9 * 4;
   }
+};
 
-  // 2. One warp per tile row, two channels per thread.
-  const int y = ty0 + warp;
-  if (y >= H) return;
-  const T* row = fm + ((size_t)b * H + y) * W * C;
-  T* drow = dfm + ((size_t)b * H + y) * W * C;
-  const size_t bins = (size_t)out_h * out_w;
-  for (int c = 2 * lane; c < C; c += 64) {
-    float f[TILE_X][2], acc[TILE_X][2];
+// This thread's position among the block's threads with `hit` set, in
+// thread order; `total`: how many have it set. Two barriers.
+__device__ __forceinline__ int compact(bool hit, int* wcount, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+  if (lane == 0) wcount[warp] = __popc(ballot);
+  __syncthreads();
+  int off = 0, tot = 0;
+  for (int q = 0; q < (int)(blockDim.x >> 5); ++q) {
+    const int c = wcount[q];
+    off += q < warp ? c : 0;
+    tot += c;
+  }
+  __syncthreads();
+  total = tot;
+  return off + __popc(ballot & ((1u << lane) - 1u));
+}
+
+// grid: the plan's blocks; block: the plan's threads (cv channel-pair lanes
+// x kBwdTile rows, rounded up to a warp; thread = lane tid % cv, tile row
+// tid / cv, which owns that row's kBwdTile pixels); dynamic shared memory:
+// BwdSmem's total. counter: the next tile to take (0 at launch). kCopy16: the stage copies move 16
+// bytes (rows of 16-byte multiples on 16-byte addresses), else one pair.
+// At most 64 registers a thread, so four blocks share an SM.
+template <typename T, bool kCopy16>
+__global__ void __launch_bounds__(kBwdMaxThreads, 4)
+roi_pool_bwd_kernel(const T* __restrict__ fm, const int* __restrict__ bounds,
+                    const T* __restrict__ pooled, const T* __restrict__ g,
+                    T* __restrict__ dfm, int* __restrict__ counter, int B,
+                    int P, int H, int W, int C, int out_h, int out_w,
+                    int cv_lanes, int cap, int chunk, int round) {
+  using PV = typename Pair<T>::V;
+  constexpr int kUnit = kCopy16 ? 16 : (int)sizeof(PV);
+  constexpr int S = kBwdTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BwdSmem lay(cv_lanes, (int)sizeof(PV), chunk, cap, P);
+  unsigned long long* bits_s =
+      reinterpret_cast<unsigned long long*>(smem + lay.bits_off);
+  int* cell_s = reinterpret_cast<int*>(smem + lay.cell_off);
+  int* box_s = reinterpret_cast<int*>(smem + lay.box_off);
+  int* wcount = reinterpret_cast<int*>(smem + lay.wcount_off);
+  int* tile_s = wcount + 8;
+  const unsigned stage_u32 = (unsigned)__cvta_generic_to_shared(smem);
+
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int cv = tid % cv_lanes, row = tid / cv_lanes;
+  const bool has_px = row < S;
+  const int tiles_x = (W + S - 1) / S, tiles_y = (H + S - 1) / S;
+  const int n_tiles = B * tiles_y * tiles_x;
+  const int bins = out_h * out_w, nb = 2 * out_h + 2 * out_w;
+  const int n_pairs = C / 2;  // channel pairs
+  const int row_stride = lay.row_bytes / (int)sizeof(PV);
+
+  while (true) {
+    if (tid == 0) *tile_s = atomicAdd(counter, 1);
+    __syncthreads();
+    const int t = *tile_s;
+    if (t >= n_tiles) break;
+    const int tx = t % tiles_x, rest = t / tiles_x;
+    const int y0 = (rest % tiles_y) * S, x0 = tx * S, b = rest / tiles_y;
+    const int y = y0 + row;
+    const int* bd_img = bounds + (size_t)b * P * nb;
+
+    // The fm values of this thread's pixels and channels in pass pc; the
+    // first pass's loads are in flight while the lists are built.
+    float f[S][2];
+    auto load_fm = [&](int pc) {
+      const bool on = has_px && y < H && pc + cv < n_pairs;
+      const T* src = fm + (((size_t)b * H + y) * W + x0) * C + 2 * (pc + cv);
 #pragma unroll
-    for (int t = 0; t < TILE_X; ++t) {
-      acc[t][0] = acc[t][1] = 0.f;
-      f[t][0] = f[t][1] = 0.f;
-      if (tx0 + t < W)
-        Pair<T>::split(Pair<T>::load(row + (size_t)(tx0 + t) * C + c),
-                       f[t][0], f[t][1]);
+      for (int s = 0; s < S; ++s) {
+        f[s][0] = f[s][1] = 0.f;
+        if (on && x0 + s < W)
+          Pair<T>::split(Pair<T>::load(src + s * C), f[s][0], f[s][1]);
+      }
+    };
+    load_fm(0);
+
+    // 1. The boxes whose outer range meets the tile, in ascending order.
+    int n_box = 0;
+    for (int base = 0; base < P; base += nt) {
+      const int p = base + tid;
+      bool hit = false;
+      if (p < P) {
+        const int* bd = bd_img + (size_t)p * nb;
+        const int by0 = bd[0], by1 = bd[2 * out_h - 1];
+        const int bx0 = bd[2 * out_h], bx1 = bd[nb - 1];
+        hit = by0 < by1 && bx0 < bx1 && by0 < y0 + S && by1 > y0 &&
+              bx0 < x0 + S && bx1 > x0;
+      }
+      int total;
+      const int at = compact(hit, wcount, total);
+      if (hit) box_s[n_box + at] = p;
+      n_box += total;
     }
-    for (int q = 0; q < n; ++q) {
-      const int p = list[q];
-      const int* bd = bd_img + (size_t)p * nb;
-      if (y < bd[0] || y >= bd[2 * out_h - 1]) continue;
-      const size_t cell0 = ((size_t)b * P + p) * bins;
-      for (int i = 0; i < out_h; ++i) {
-        if (y < bd[i] || y >= bd[out_h + i]) continue;
-        for (int j = 0; j < out_w; ++j) {
-          const int xl = bd[2 * out_h + j], xh = bd[2 * out_h + out_w + j];
-          if (xh <= xl || xl >= tx0 + TILE_X || xh <= tx0) continue;
-          const size_t at = (cell0 + i * out_w + j) * C + c;
-          float p0, p1, g0, g1;
-          Pair<T>::split(Pair<T>::load(pooled + at), p0, p1);
-          Pair<T>::split(Pair<T>::load(g + at), g0, g1);
+    __syncthreads();  // the box list is complete
+    const int n_cand = n_box * bins;
+
+    for (int pc = 0; pc < n_pairs; pc += cv_lanes) {  // channel passes
+      const int pass = min(cv_lanes, n_pairs - pc);   // pairs in this pass
+      const bool active = has_px && cv < pass;
+      if (pc > 0) load_fm(pc);
+      float acc[S][2];
 #pragma unroll
-          for (int t = 0; t < TILE_X; ++t) {
-            const int x = tx0 + t;
-            if (x < xl || x >= xh) continue;
-            if (f[t][0] == p0) acc[t][0] += g0;
-            if (f[t][1] == p1) acc[t][1] += g1;
+      for (int s = 0; s < S; ++s) acc[s][0] = acc[s][1] = 0.f;
+      // The pass's units of the pooled and g rows (16 bytes or one pair).
+      const int units = pass * (int)sizeof(PV) / kUnit;
+
+      // 2-3. Build the list in rounds of `round` candidates; walk it when
+      // it is full or the candidates are done.
+      for (int cursor = 0; cursor < n_cand;) {
+        int count = 0;
+        while (cursor < n_cand && count + round <= cap) {
+          const int q = cursor + tid;
+          bool hit = false;
+          int cell = 0;
+          unsigned long long bits = 0;
+          if (tid < round && q < n_cand) {
+            const int bi = q / bins, k = q - bi * bins;
+            const int i = k / out_w, j = k - i * out_w;
+            const int p = box_s[bi];
+            const int* bd = bd_img + (size_t)p * nb;
+            const int ly0 = max(bd[i], y0) - y0;
+            const int ly1 = min(bd[out_h + i], y0 + S) - y0;
+            const int lx0 = max(bd[2 * out_h + j], x0) - x0;
+            const int lx1 = min(bd[2 * out_h + out_w + j], x0 + S) - x0;
+            hit = ly0 < ly1 && lx0 < lx1;
+            if (hit) {
+              // Bit 8 r + s: tile pixel (r, s) lies in the bin.
+              const unsigned cols = (0xffu >> (S - lx1)) & (0xffu << lx0);
+              bits = ((kRowOnes >> (8 * (S - ly1))) & (kRowOnes << (8 * ly0))) *
+                     cols;
+              cell = (b * P + p) * bins + k;
+            }
           }
+          int total;
+          const int at = compact(hit, wcount, total);
+          if (hit) {
+            bits_s[count + at] = bits;
+            cell_s[count + at] = cell;
+          }
+          count += total;
+          cursor += round;
         }
+        __syncthreads();  // the list is complete
+
+        // Stage the pooled and g rows of list chunk k into buffer k & 1.
+        auto stage = [&](int k) {
+          const int q0 = k * chunk, n = min(chunk, count - q0);
+          const unsigned buf = stage_u32 + (unsigned)((k & 1) * lay.stage_bytes);
+          for (int item = tid; item < n * 2 * units; item += nt) {
+            const int slot = item / (2 * units), rem = item - slot * 2 * units;
+            const int which = rem / units, u = rem - which * units;
+            const T* src = (which ? g : pooled) + (size_t)cell_s[q0 + slot] * C +
+                           2 * pc + u * (kUnit / (int)sizeof(T));
+            cp_async<kUnit>(buf + (unsigned)((slot * 2 + which) *
+                                             lay.row_bytes + u * kUnit),
+                            src);
+          }
+        };
+        const int n_chunks = (count + chunk - 1) / chunk;
+        stage(0);
+        cp_async_commit();
+        for (int k = 0; k < n_chunks; ++k) {
+          if (k + 1 < n_chunks) stage(k + 1);
+          cp_async_commit();
+          cp_async_wait<1>();  // chunk k's rows have landed
+          __syncthreads();
+          const PV* sb = reinterpret_cast<const PV*>(smem + (k & 1) *
+                                                     lay.stage_bytes);
+          const int q0 = k * chunk, q1 = min(count, q0 + chunk);
+          if (active) {
+            for (int q = q0; q < q1; ++q) {
+              // The bin's pixels in this thread's row.
+              const unsigned cols = (unsigned)(bits_s[q] >> (8 * row)) & 0xffu;
+              if (cols == 0u) continue;
+              const int slot = q - q0;
+              float p0, p1, g0, g1;
+              Pair<T>::split(sb[(2 * slot) * row_stride + cv], p0, p1);
+              Pair<T>::split(sb[(2 * slot + 1) * row_stride + cv], g0, g1);
+              auto eq_add = [&](int s) {
+                if (f[s][0] == p0) acc[s][0] += g0;
+                if (f[s][1] == p1) acc[s][1] += g1;
+              };
+              if (cols == 0xffu) {  // the whole row: no tests
+#pragma unroll
+                for (int s = 0; s < S; ++s) eq_add(s);
+              } else {
+#pragma unroll
+                for (int s = 0; s < S; ++s)
+                  if ((cols >> s) & 1u) eq_add(s);
+              }
+            }
+          }
+          __syncthreads();  // buffer k & 1 is free for chunk k + 2
+        }
+        cp_async_wait<0>();
+      }
+
+      if (active && y < H) {
+        T* dst = dfm + (((size_t)b * H + y) * W + x0) * C + 2 * (pc + cv);
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          if (x0 + s < W) Pair<T>::store(dst + s * C, acc[s][0], acc[s][1]);
       }
     }
-#pragma unroll
-    for (int t = 0; t < TILE_X; ++t)
-      if (tx0 + t < W)
-        Pair<T>::store(drow + (size_t)(tx0 + t) * C + c, acc[t][0],
-                       acc[t][1]);
+    __syncthreads();  // the tile's lists and number are free
   }
 }
 
 template <typename T>
 int launch_bwd(const void* fm, const void* bounds, const void* pooled,
-               const void* g, void* dfm, int B, int P, int H, int W, int C,
-               int out_h, int out_w, void* stream) {
+               const void* g, void* dfm, int* counter, int B, int P, int H,
+               int W, int C, int out_h, int out_w, int tile, int cv,
+               int threads, int cap, int chunk, int round, int copy16,
+               int blocks, int smem_bytes, void* stream) {
+  const int pair_bytes = (int)sizeof(typename Pair<T>::V);
+  const BwdSmem lay(cv, pair_bytes, chunk, cap, P);
+  if (tile != kBwdTile || cv < 1 || cv > 32 || threads % 32 ||
+      threads > kBwdMaxThreads || threads < cv * kBwdTile || chunk < 1 ||
+      round < 1 || round > threads || cap < round || blocks < 1 ||
+      smem_bytes < lay.total ||
+      (copy16 && (lay.row_bytes != cv * pair_bytes || C * (int)sizeof(T) % 16)))
+    return (int)cudaErrorInvalidValue;
   if ((long long)B * H * W == 0) return 0;
-  const int rows = 8;  // warps per block = tile rows
-  dim3 grid((W + TILE_X - 1) / TILE_X, (H + rows - 1) / rows, B);
-  dim3 block(32, rows);
-  const size_t smem = (size_t)(P > 0 ? P : 1) * sizeof(int);
-  roi_pool_bwd_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(
+  auto kernel = copy16 ? roi_pool_bwd_kernel<T, true>
+                       : roi_pool_bwd_kernel<T, false>;
+  const int rc = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (rc) return rc;
+  kernel<<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(
       static_cast<const T*>(fm), static_cast<const int*>(bounds),
       static_cast<const T*>(pooled), static_cast<const T*>(g),
-      static_cast<T*>(dfm), P, H, W, C, out_h, out_w);
+      static_cast<T*>(dfm), counter, B, P, H, W, C, out_h, out_w, cv, cap,
+      chunk, round);
   return (int)cudaGetLastError();
 }
 
 // fm: [B, H, W, C] contiguous (C even); pooled, g: [B, P, oh, ow, C]; dfm:
-// [B, H, W, C]; P <= 8192 (the tile's box list lives in shared memory).
-// The bin bounds first, then the kernel.
+// [B, H, W, C]; bounds: int32 [B * P * (2*oh + 2*ow) + 1], the bin bounds
+// and, last, the tile counter. The bin bounds (and the counter's zero)
+// first, then the kernel, with the plan's schedule.
 template <typename T>
 int bwd(const void* fm, const void* boxes, const void* mask, void* bounds,
         const void* pooled, const void* g, void* dfm, int B, int P, int H,
-        int W, int C, int out_h, int out_w, float scale, void* stream) {
-  const int rc = launch_roi_bounds(boxes, mask, bounds, B, P, H, W, out_h,
-                                   out_w, scale, stream);
+        int W, int C, int out_h, int out_w, float scale, int tile, int cv,
+        int threads, int cap, int chunk, int round, int copy16, int blocks,
+        int smem_bytes, void* stream) {
+  int* counter =
+      static_cast<int*>(bounds) + (size_t)B * P * (2 * out_h + 2 * out_w);
+  const int rc = launch_roi_bounds(boxes, mask, bounds, counter, B, P, H, W,
+                                   out_h, out_w, scale, stream);
   return rc ? rc
-            : launch_bwd<T>(fm, bounds, pooled, g, dfm, B, P, H, W, C, out_h,
-                            out_w, stream);
+            : launch_bwd<T>(fm, bounds, pooled, g, dfm, counter, B, P, H, W,
+                            C, out_h, out_w, tile, cv, threads, cap, chunk,
+                            round, copy16, blocks, smem_bytes, stream);
 }
 
 // fm: [B, H, W, C] contiguous (C even); pyr: [B, ceil(H / chunk), W, C],
@@ -519,8 +696,8 @@ extern "C" int roi_pool_bounds(const void* boxes, const void* mask,
                                void* bounds, int B, int P, int H, int W,
                                int out_h, int out_w, float scale,
                                void* stream) {
-  return launch_roi_bounds(boxes, mask, bounds, B, P, H, W, out_h, out_w,
-                           scale, stream);
+  return launch_roi_bounds(boxes, mask, bounds, nullptr, B, P, H, W, out_h,
+                           out_w, scale, stream);
 }
 
 extern "C" int roi_pool_fwd_f32(const void* fm, const void* boxes,
@@ -541,20 +718,32 @@ extern "C" int roi_pool_fwd_bf16(const void* fm, const void* boxes,
                                   out_h, out_w, scale, vec, chunk, stream);
 }
 
+// The backward's schedule (ops/roi_pool.py::roi_bwd_plan): tile (its side,
+// kBwdTile), cv channel-pair lanes, threads, list capacity cap, stage chunk,
+// candidates per round, copy16 (16-byte stage copies), blocks, smem_bytes;
+// bounds holds one int more than the table, for the tile counter.
 extern "C" int roi_pool_bwd_f32(const void* fm, const void* boxes,
                                 const void* mask, void* bounds,
                                 const void* pooled, const void* g, void* dfm,
                                 int B, int P, int H, int W, int C, int out_h,
-                                int out_w, float scale, void* stream) {
+                                int out_w, float scale, int tile, int cv,
+                                int threads, int cap, int chunk, int round,
+                                int copy16, int blocks, int smem_bytes,
+                                void* stream) {
   return bwd<float>(fm, boxes, mask, bounds, pooled, g, dfm, B, P, H, W, C,
-                    out_h, out_w, scale, stream);
+                    out_h, out_w, scale, tile, cv, threads, cap, chunk, round,
+                    copy16, blocks, smem_bytes, stream);
 }
 
 extern "C" int roi_pool_bwd_bf16(const void* fm, const void* boxes,
                                  const void* mask, void* bounds,
                                  const void* pooled, const void* g, void* dfm,
                                  int B, int P, int H, int W, int C, int out_h,
-                                 int out_w, float scale, void* stream) {
+                                 int out_w, float scale, int tile, int cv,
+                                 int threads, int cap, int chunk, int round,
+                                 int copy16, int blocks, int smem_bytes,
+                                 void* stream) {
   return bwd<__nv_bfloat16>(fm, boxes, mask, bounds, pooled, g, dfm, B, P, H,
-                            W, C, out_h, out_w, scale, stream);
+                            W, C, out_h, out_w, scale, tile, cv, threads, cap,
+                            chunk, round, copy16, blocks, smem_bytes, stream);
 }

@@ -23,17 +23,20 @@ version bit for bit, and so does the backward's ``dys``; ``dscale`` and
 in ``csrc/bn_pool.cu``). ``bn_relu_pool_s2d_plain`` is the same autograd
 function over the plain versions, on any device.
 
-The backward kernel walks tiles of the map in shared memory, finds each
-output's winner once and lets every input gather its contributions;
-``bwd_plan`` is its launch plan and
+Both kernels walk tiles of the map staged in shared memory with a halo.
+The forward takes each tile's maxima in three stages (columns, rows, phase
+groups); ``fwd_plan`` is its launch plan and
+``bn_relu_pool_s2d_tiled_reference`` a plain version that follows its
+schedule. The backward finds each output's winner once and lets every input
+gather its contributions; ``bwd_plan`` is its launch plan and
 ``bn_relu_pool_s2d_backward_tiled_reference`` a plain version that follows
-its schedule, so the CPU tests reach its index arithmetic.
+its schedule. So the CPU tests reach both kernels' index arithmetic.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +53,14 @@ _BWD_FNS = {torch.float32: "bn_relu_pool_bwd_f32",
 # SM; the H100's shared memory per SM and per block (227 KB), and what the
 # runtime keeps of it per block.
 BWD_TILES = {torch.bfloat16: (8, 16), torch.float32: (8, 8)}
+# The forward kernel's schedule: s2d blocks per tile (kFwdU x kFwdV), threads
+# per block at most, stages of tiles in flight, blocks it aims to keep on an
+# SM, and the bytes of one group's channel chunk it aims for.
+FWD_TILE = (8, 16)
+FWD_MAX_THREADS = 256
+FWD_STAGES = 2
+FWD_BLOCKS_PER_SM = 1
+FWD_CHUNK_BYTES = 64
 BWD_MAX_THREADS = 256
 BWD_BLOCKS_PER_SM = 3
 SMEM_PER_SM = 233472
@@ -126,6 +137,125 @@ def bn_relu_pool_s2d_backward_reference(
     dscale = (dpre * x).sum((0, 1, 2, 3))
     dshift = dpre.sum((0, 1, 2, 3))
     return dys, dscale, dshift
+
+
+class FwdPlan(NamedTuple):
+    """How the forward kernel (``csrc/bn_pool.cu``) runs one shape."""
+
+    vec: int  # channels per access: 16 bytes' worth, else one pair
+    fc: int  # channels f per chunk (of each of the four groups)
+    n_chunks: int  # O // fc; block x keeps chunk x % n_chunks
+    tile: Tuple[int, int]  # s2d blocks per tile
+    row_splits: int  # threads per output column of a tile
+    threads: int  # fc // vec * tile[1] * row_splits
+    stages: int  # tiles in flight per block (by TMA where vec is 16 bytes)
+    smem_bytes: int  # dynamic shared memory per block
+    n_tiles: int
+    n_walkers: int  # blocks per chunk; each walks every n_walkers-th tile
+
+
+def _fwd_stage_bytes(fc: int, itemsize: int) -> int:
+    """One tile's ys with its halo row and column, [tile_u + 1 rows][4
+    groups][tile_v + 1 columns][fc], rounded up to 128 bytes."""
+    tu, tv = FWD_TILE
+    return -(-(tu + 1) * 4 * (tv + 1) * fc * itemsize // 128) * 128
+
+
+def fwd_plan(dtype: torch.dtype, b: int, u: int, v: int, o: int,
+             aligned: bool = True, *, stages: int = FWD_STAGES,
+             chunk_bytes: int = FWD_CHUNK_BYTES,
+             blocks_per_sm: int = FWD_BLOCKS_PER_SM) -> FwdPlan:
+    """The forward kernel's plan for ys [b, u, v, 4*o]; ``aligned``: ys and
+    the output lie on 16-byte addresses. The channel chunk is the largest
+    divisor of o (a multiple of the access width) of at most
+    ``chunk_bytes``; a thread takes one output column of a tile and as many
+    of its rows as the threads allow; the stages (``stages`` tiles of ys
+    with their halos and their mbarriers) must leave room for
+    ``blocks_per_sm`` blocks on an SM. Tiles come by TMA where a thread
+    moves 16 bytes, else by cp.async. The defaults are the fastest of
+    ``scripts/sweep_pool_plans.py``'s variants on the H100 (PERF.md).
+    Raises for what the kernel does not take."""
+    if dtype not in _FNS:
+        raise TypeError(f"bn_relu_pool_s2d: unsupported dtype {dtype}")
+    if o % 2 or o < 2 or o > 512:
+        raise ValueError(f"bn_relu_pool_s2d: need an even O <= 512, got {o}")
+    if not 2 <= stages <= 4:
+        raise ValueError(f"bn_relu_pool_s2d: 2 to 4 stages, got {stages}")
+    isz = torch.empty((), dtype=dtype).element_size()
+    full = _VEC_BYTES // isz
+    vec = full if aligned and o % full == 0 else 2
+    tu, tv = FWD_TILE
+    fc = max(f for f in range(vec, o + 1, vec)
+             if o % f == 0 and (f == vec or f * isz <= chunk_bytes))
+    lanes = fc // vec
+    rs = max(r for r in (1, 2, 4, 8)
+             if tu % r == 0 and lanes * tv * r <= FWD_MAX_THREADS)
+    smem = 128 + stages * (_fwd_stage_bytes(fc, isz) + 8)
+    if blocks_per_sm * (smem + SMEM_RESERVED) > SMEM_PER_SM:
+        raise ValueError(f"bn_relu_pool_s2d: {stages} stages of {fc} "
+                         f"channels leave no room for {blocks_per_sm} "
+                         f"blocks on an SM")
+    n_tiles = b * -(-u // tu) * -(-v // tv)
+    if n_tiles >= 2 ** 31 or (tu + 1) * v * 4 * o >= 2 ** 31:
+        raise ValueError("bn_relu_pool_s2d: the map is too large for the "
+                         "kernel's 32-bit tile offsets")
+    n_chunks = o // fc
+    n_walkers = max(1, min(n_tiles, -(-N_SMS * blocks_per_sm // n_chunks)))
+    return FwdPlan(vec, fc, n_chunks, FWD_TILE, rs, lanes * tv * rs, stages,
+                   smem, n_tiles, n_walkers)
+
+
+def bn_relu_pool_s2d_tiled_reference(
+    ys: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+    plan: Optional[FwdPlan] = None,
+) -> torch.Tensor:
+    """Plain version that follows the forward kernel's schedule
+    (``fwd_plan``): each walker's tiles in order, per channel chunk; per
+    tile, ys with its halo row above and column to the left as the stage
+    holds it (zero outside the map, as TMA fills it), the affine of every
+    staged element (unfused multiply, then add, in f32), -inf in place of
+    the halo row of the map's first tile row and of the halo column of its
+    first tile column; then the column stage (ex = 1 groups), the row stage
+    (ey = 1 groups), the max over the four groups, ReLU and one rounding.
+    Equal to ``bn_relu_pool_s2d_reference`` bit for bit. On the CPU."""
+    b_, u_, v_, c4 = ys.shape
+    o = c4 // 4
+    if plan is None:
+        plan = fwd_plan(ys.dtype, b_, u_, v_, o)
+    tu, tv = plan.tile
+    nu, nv = -(-u_ // tu), -(-v_ // tv)
+    x_all = ys.float().reshape(b_, u_, v_, 4, o)
+    sc, sh = scale.float(), shift.float()
+    out = torch.empty((b_, u_, v_, o), dtype=ys.dtype)
+    ninf = float("-inf")
+    for chunk in range(plan.n_chunks):
+        f = slice(chunk * plan.fc, (chunk + 1) * plan.fc)
+        for walker in range(plan.n_walkers):
+            for t in range(walker, plan.n_tiles, plan.n_walkers):
+                b, rest = divmod(t, nu * nv)
+                u0, v0 = (rest // nv) * tu, (rest % nv) * tv
+                # The stage: rows u0-1 .. u0+tu-1, columns v0-1 .. v0+tv-1.
+                stage = torch.zeros(tu + 1, tv + 1, 4, plan.fc)
+                r0, c0 = max(u0 - 1, 0), max(v0 - 1, 0)
+                r1, c1 = min(u0 + tu, u_), min(v0 + tv, v_)
+                stage[r0 - u0 + 1 : r1 - u0 + 1, c0 - v0 + 1 : c1 - v0 + 1] = (
+                    x_all[b, r0:r1, c0:c1, :, f])
+                z = stage * sc[f] + sh[f]
+                if u0 == 0:
+                    z[0] = ninf
+                if v0 == 0:
+                    z[:, 0] = ninf
+                # Column stage, ex = 1 groups: column j-1 against j.
+                zc = z[:, 1:].clone()
+                zc[:, :, 1::2] = torch.maximum(z[:, :-1, 1::2], z[:, 1:, 1::2])
+                # Row stage, ey = 1 groups: row i-1 against i.
+                zr = zc[1:].clone()
+                zr[:, :, 2:] = torch.maximum(zc[:-1, :, 2:], zc[1:, :, 2:])
+                m = zr.amax(2)
+                nu_o, nv_o = min(tu, u_ - u0), min(tv, v_ - v0)
+                out[b, u0 : u0 + nu_o, v0 : v0 + nv_o, f] = (
+                    m[:nu_o, :nv_o].clamp_min(0).to(ys.dtype))
+    return out
 
 
 class BwdPlan(NamedTuple):
@@ -330,7 +460,7 @@ def _check(ys: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 def _bind(lib) -> None:
     for name in _FNS.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
@@ -342,10 +472,10 @@ def _bind(lib) -> None:
         fn.restype = ctypes.c_int
 
 
-def _forward(ys: torch.Tensor, scale: torch.Tensor,
-             shift: torch.Tensor) -> torch.Tensor:
+def _forward(ys: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+             plan: Optional[FwdPlan] = None) -> torch.Tensor:
     """The forward without autograd: the plain version on the CPU, the
-    kernel on a CUDA tensor."""
+    kernel on a CUDA tensor (with ``plan``, else ``fwd_plan``'s)."""
     if ys.device.type == "cpu":
         return bn_relu_pool_s2d_reference(ys, scale, shift)
     o = _check(ys, scale, shift, "bn_relu_pool_s2d", _FNS)
@@ -353,11 +483,18 @@ def _forward(ys: torch.Tensor, scale: torch.Tensor,
     scale = scale.detach().to(torch.float32).contiguous()
     shift = shift.detach().to(torch.float32).contiguous()
     out = torch.empty((b, u, v, o), dtype=ys.dtype, device=ys.device)
+    if out.numel() == 0:
+        return out
+    if plan is None:
+        plan = fwd_plan(ys.dtype, b, u, v, o,
+                        aligned=ys.data_ptr() % _VEC_BYTES == 0)
     lib = _build.library("bn_pool", _bind)
     with torch.cuda.device(ys.device):
         rc = getattr(lib, _FNS[ys.dtype])(
             ys.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            out.data_ptr(), b, u, v, o, _build.stream_ptr(ys),
+            out.data_ptr(), b, u, v, o, plan.vec, plan.fc, plan.row_splits,
+            plan.stages, plan.n_walkers, plan.smem_bytes,
+            _build.stream_ptr(ys),
         )
     _build.check(rc, "bn_relu_pool_s2d")
     bn_relu_pool_s2d.launches += 1

@@ -34,7 +34,11 @@ runs it alone), so forward and backward agree on every bin. The forward
 kernel builds a max pyramid over 8-row chunks of the map and reads each
 bin's interior chunks from it and only its edge rows from the map;
 ``roi_pool_plan`` is its launch plan and ``roi_pool_pyramid_reference`` a
-plain version that follows its schedule, so the CPU tests reach its index
+plain version that follows its schedule. The backward kernel takes tiles of
+the map, lists the (box, bin) pairs that meet each tile in shared memory,
+stages their pooled and g rows there and gathers; ``roi_bwd_plan`` is its
+launch plan and ``roi_pool_backward_tiled_reference`` a plain version that
+follows its schedule. So the CPU tests reach both kernels' index
 arithmetic.
 """
 
@@ -54,6 +58,18 @@ _BWD_FNS = {torch.float32: "roi_pool_bwd_f32",
 _BOUNDS_FN = "roi_pool_bounds"
 # The backward kernel keeps a tile's list of boxes in shared memory.
 _BWD_MAX_BOXES = 8192
+# The backward kernel's schedule (``csrc/roi_pool.cu``): the tile's side
+# (kBwdTile; a thread takes one row of it and one pair of channels), channel
+# pairs per pass at most, and the defaults of ``roi_bwd_plan``: pair list
+# capacity, stage chunk, blocks per SM.
+ROI_BWD_TILE = 8
+ROI_BWD_LANES = 32
+ROI_BWD_CAP = 512
+ROI_BWD_CHUNK = 32
+ROI_BWD_BLOCKS_PER_SM = 4
+_SMEM_PER_SM = 233472
+_SMEM_MAX = 232448
+_N_SMS = 132
 # The forward kernel's schedule (``csrc/roi_pool.cu``: kChunk, kBinThreads).
 ROI_CHUNK = 8
 ROI_BIN_THREADS = 128
@@ -267,6 +283,179 @@ def roi_pool_pyramid_reference(
     return out
 
 
+class RoiBwdPlan(NamedTuple):
+    """How the backward kernel (``csrc/roi_pool.cu``) runs one shape."""
+
+    tile: Tuple[int, int]  # pixels per tile, (rows, columns)
+    lanes: int  # channel pairs of one pass (a thread takes one)
+    passes: int  # ceil(C / 2 / lanes)
+    threads: int  # lanes x tile rows, rounded up to a warp
+    cap: int  # pairs the list holds before it is walked
+    chunk: int  # pairs whose pooled and g rows are staged at a time
+    round: int  # candidates (box x bin) tested at a time
+    copy16: bool  # stage copies of 16 bytes (else one pair of channels)
+    blocks: int  # persistent blocks; each takes tiles from a counter
+    smem_bytes: int  # dynamic shared memory per block
+    n_tiles: int
+
+
+def _roi_bwd_smem(lanes: int, pair_bytes: int, chunk: int, cap: int,
+                  p: int) -> int:
+    """Bytes of the kernel's layout (BwdSmem): two stage buffers of chunk x
+    (pooled, g) rows of ``lanes`` pairs (rounded up to 16 bytes), the pair
+    list's pixel maps and cells, the box list (each rounded up to 16), the
+    warps' counts and the tile number."""
+
+    def up16(n):
+        return -(-n // 16) * 16
+
+    return (2 * chunk * 2 * up16(lanes * pair_bytes) + cap * 8
+            + up16(cap * 4) + up16(p * 4) + 9 * 4)
+
+
+def roi_bwd_plan(dtype: torch.dtype, b: int, p: int, h: int, w: int, c: int,
+                 out_h: int, out_w: int, aligned: bool = True, *,
+                 cap: int = ROI_BWD_CAP, chunk: int = ROI_BWD_CHUNK,
+                 round_: Optional[int] = None,
+                 blocks_per_sm: int = ROI_BWD_BLOCKS_PER_SM) -> RoiBwdPlan:
+    """The backward kernel's plan for fm [b, h, w, c] and p boxes of out_h
+    x out_w bins; ``aligned``: fm, pooled, g and dfm lie on 16-byte
+    addresses. Tiles of 8 x 8 pixels; a thread takes one row of a tile and
+    one pair of channels; a pass covers at most ROI_BWD_LANES pairs. Candidates are
+    tested a block's worth at a time (``round_``, at most ``cap``); the list
+    is walked when another round might overflow it. Raises for what the
+    kernel does not take."""
+    if dtype not in _BWD_FNS:
+        raise TypeError(f"roi_pool_backward: unsupported dtype {dtype}")
+    if c % 2 or c < 2 or out_h < 1 or out_w < 1 or out_h * out_w > 32:
+        raise ValueError(f"roi_pool_backward: need an even channel count "
+                         f"and at most 32 bins, got C={c}, {out_h}x{out_w}")
+    if p > _BWD_MAX_BOXES:
+        raise ValueError(f"roi_pool_backward: at most {_BWD_MAX_BOXES} "
+                         f"boxes per image, got {p}")
+    isz = torch.empty((), dtype=dtype).element_size()
+    ty = tx = ROI_BWD_TILE
+    lanes = min(c // 2, ROI_BWD_LANES)
+    threads = -(-lanes * ty // 32) * 32
+    round_ = min(threads, cap) if round_ is None else round_
+    if not 1 <= round_ <= min(threads, cap) or chunk < 1:
+        raise ValueError(f"roi_pool_backward: round {round_}, cap {cap}, "
+                         f"chunk {chunk}")
+    copy16 = aligned and (2 * lanes * isz) % 16 == 0 and (c * isz) % 16 == 0
+    smem = _roi_bwd_smem(lanes, 2 * isz, chunk, cap, p)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"roi_pool_backward: {smem} bytes of shared memory")
+    n_tiles = b * -(-h // ty) * -(-w // tx)
+    if n_tiles >= 2 ** 31 or b * p * out_h * out_w >= 2 ** 31:
+        raise ValueError("roi_pool_backward: too many tiles or bins")
+    per_sm = max(1, min(blocks_per_sm, _SMEM_PER_SM // (smem + 1024)))
+    blocks = max(1, min(n_tiles, _N_SMS * per_sm))
+    return RoiBwdPlan((ty, tx), lanes, -(-(c // 2) // lanes), threads, cap,
+                      chunk, round_, copy16, blocks, smem, n_tiles)
+
+
+def _tile_lists(bd, y0: int, x0: int, ty: int, tx: int, out_h: int,
+                out_w: int, plan: RoiBwdPlan):
+    """The backward kernel's pair lists of one tile (``bd``: the image's
+    bounds, a list of lists): the boxes whose outer range meets the tile in
+    ascending order, their (box, bin) candidates in ascending (box, bin row,
+    bin column) order tested ``plan.round`` at a time, the pairs that meet
+    the tile kept as (box, bin row, bin column, rows, columns) with the
+    bin's rows and columns clipped to the tile (tile coordinates); a new
+    list starts where another round might overflow ``plan.cap``."""
+    boxes = [p for p, r in enumerate(bd)
+             if r[0] < r[2 * out_h - 1] and r[2 * out_h] < r[-1]
+             and r[0] < y0 + ty and r[2 * out_h - 1] > y0
+             and r[2 * out_h] < x0 + tx and r[-1] > x0]
+    cands = [(p, i, j) for p in boxes for i in range(out_h)
+             for j in range(out_w)]
+    lists, cursor = [], 0
+    while cursor < len(cands):
+        lst = []
+        while cursor < len(cands) and len(lst) + plan.round <= plan.cap:
+            for p, i, j in cands[cursor : cursor + plan.round]:
+                r = bd[p]
+                ly0, ly1 = max(r[i], y0) - y0, min(r[out_h + i], y0 + ty) - y0
+                lx0 = max(r[2 * out_h + j], x0) - x0
+                lx1 = min(r[2 * out_h + out_w + j], x0 + tx) - x0
+                if ly0 < ly1 and lx0 < lx1:
+                    lst.append((p, i, j, (ly0, ly1), (lx0, lx1)))
+            cursor += plan.round
+        lists.append(lst)
+    return lists
+
+
+def roi_pool_backward_tiled_reference(
+    fm: torch.Tensor,
+    boxes: torch.Tensor,
+    box_mask: Optional[torch.Tensor],
+    pooled: torch.Tensor,
+    g: torch.Tensor,
+    spatial_scale: float,
+    out_h: int = 3,
+    out_w: int = 3,
+    plan: Optional[RoiBwdPlan] = None,
+) -> torch.Tensor:
+    """Plain version that follows the backward kernel's schedule
+    (``roi_bwd_plan``, or ``plan``): tile by tile, per pass of channel
+    pairs, the pair lists of ``_tile_lists`` walked in order in chunks of
+    ``plan.chunk``, each listed bin's compare-and-add over its clipped
+    rectangle, the sums in f32 from zero, one rounding per pixel. Equal to
+    ``roi_pool_backward_reference`` bit for bit. On the CPU."""
+    b_, h, w, c = fm.shape
+    p_ = boxes.shape[1]
+    if plan is None:
+        plan = roi_bwd_plan(fm.dtype, b_, p_, h, w, c, out_h, out_w)
+    ty, tx = plan.tile
+    nty, ntx = -(-h // ty), -(-w // tx)
+    bounds = roi_bounds(boxes, box_mask, spatial_scale, out_h, out_w, h,
+                        w).tolist()
+    f = fm.float()
+    pf = pooled.to(fm.dtype).float()
+    gf = g.to(fm.dtype).float()
+    dfm = torch.empty_like(fm)
+    for t in range(plan.n_tiles):
+        b, rest = divmod(t, nty * ntx)
+        y0, x0 = (rest // ntx) * ty, (rest % ntx) * tx
+        acc = torch.zeros(min(ty, h - y0), min(tx, w - x0), c)
+        lists = _tile_lists(bounds[b], y0, x0, ty, tx, out_h, out_w, plan)
+        for pc in range(0, c // 2, plan.lanes):
+            ch = slice(2 * pc, 2 * min(pc + plan.lanes, c // 2))
+            for lst in lists:
+                for k in range(0, len(lst), plan.chunk):
+                    for p, i, j, (ly0, ly1), (lx0, lx1) in lst[k : k + plan.chunk]:
+                        win = (slice(y0 + ly0, y0 + ly1),
+                               slice(x0 + lx0, x0 + lx1), ch)
+                        hit = f[b][win] == pf[b, p, i, j, ch]
+                        acc[ly0:ly1, lx0:lx1, ch] += torch.where(
+                            hit, gf[b, p, i, j, ch], 0.0)
+        dfm[b, y0 : y0 + acc.shape[0], x0 : x0 + acc.shape[1]] = acc.to(
+            fm.dtype)
+    return dfm
+
+
+def roi_bwd_tile_pairs(bounds: torch.Tensor, h: int, w: int, out_h: int,
+                       out_w: int, tile: Tuple[int, int] = (ROI_BWD_TILE,
+                                                            ROI_BWD_TILE)
+                       ) -> torch.Tensor:
+    """The number of (box, bin) pairs the backward kernel lists for each
+    tile, [B, ceil(h / tile_h), ceil(w / tile_w)], from ``roi_bounds``'s
+    table (on its device)."""
+    ty, tx = tile
+    bd = bounds.long()
+    ylo, yhi, xlo, xhi = bd.split([out_h, out_h, out_w, out_w], -1)
+    ys = torch.arange(0, h, ty, device=bd.device)
+    xs = torch.arange(0, w, tx, device=bd.device)
+
+    def meets(lo, hi, starts, size):  # [B, P, n] x tiles -> [B, P, n, T]
+        lo, hi = lo[..., None], hi[..., None]
+        return ((lo < hi) & (lo < starts + size) & (hi > starts)).float()
+
+    my = meets(ylo, yhi, ys, ty)[:, :, :, None, :, None]
+    mx = meets(xlo, xhi, xs, tx)[:, :, None, :, None, :]
+    return (my * mx).sum((1, 2, 3)).round().long()
+
+
 def _check(fm: torch.Tensor, boxes: torch.Tensor, what: str, fns,
            out_h: int, out_w: int) -> None:
     if fm.device.type != "cuda":
@@ -286,14 +475,15 @@ def _check(fm: torch.Tensor, boxes: torch.Tensor, what: str, fns,
 
 def _bind(lib) -> None:
     # (pointers, then B, P, H, W[, C], out_h, out_w, then the scale) and, in
-    # the forward, vec and chunk; the stream last.
+    # the forward, vec and chunk, in the backward its plan; the stream last.
     ints, scale = [ctypes.c_int] * 7, [ctypes.c_float]
     sigs = {_BOUNDS_FN: [ctypes.c_void_p] * 3 + ints[:6] + scale}
     for name in _FNS.values():
         sigs[name] = ([ctypes.c_void_p] * 5 + ints + scale
                       + [ctypes.c_int] * 2)
     for name in _BWD_FNS.values():
-        sigs[name] = [ctypes.c_void_p] * 7 + ints + scale
+        sigs[name] = ([ctypes.c_void_p] * 7 + ints + scale
+                      + [ctypes.c_int] * 9)
     for name, args in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = args + [ctypes.c_void_p]
@@ -389,10 +579,11 @@ def roi_pool_backward(
     spatial_scale: float,
     out_h: int = 3,
     out_w: int = 3,
+    plan: Optional[RoiBwdPlan] = None,
 ) -> torch.Tensor:
     """Backward of ``roi_pool``: dfm [B, H, W, C] in fm.dtype for the
-    cotangent ``g`` of ``pooled``. The kernel on a CUDA tensor, the plain
-    version on the CPU."""
+    cotangent ``g`` of ``pooled``. The kernel on a CUDA tensor (with
+    ``plan``, else ``roi_bwd_plan``'s), the plain version on the CPU."""
     if fm.device.type == "cpu":
         return roi_pool_backward_reference(
             fm, boxes, box_mask, pooled, g, spatial_scale, out_h, out_w
@@ -403,20 +594,26 @@ def roi_pool_backward(
     if pooled.shape != (b, p, out_h, out_w, c) or g.shape != pooled.shape:
         raise ValueError("roi_pool_backward: pooled and g must be "
                          f"[{b}, {p}, {out_h}, {out_w}, {c}]")
-    if p > _BWD_MAX_BOXES:
-        raise ValueError(f"roi_pool_backward: at most {_BWD_MAX_BOXES} "
-                         f"boxes per image, got {p}")
     boxes, mask = _box_args(boxes, box_mask, "roi_pool_backward")
-    bounds = _bounds_buffer(boxes, out_h, out_w)
     pooled = pooled.to(fm.dtype).contiguous()
     g = g.to(fm.dtype).contiguous()
     dfm = torch.empty_like(fm)
+    if plan is None:
+        plan = roi_bwd_plan(fm.dtype, b, p, h, w, c, out_h, out_w,
+                            aligned=all(t.data_ptr() % _VEC_BYTES == 0
+                                        for t in (fm, pooled, g)))
+    # The bin bounds and, last, the kernel's tile counter.
+    bounds = torch.empty(b * p * (2 * out_h + 2 * out_w) + 1,
+                         dtype=torch.int32, device=fm.device)
     lib = _build.library("roi_pool", _bind)
     with torch.cuda.device(fm.device):
         rc = getattr(lib, _BWD_FNS[fm.dtype])(
             fm.data_ptr(), boxes.data_ptr(), _ptr(mask), bounds.data_ptr(),
             pooled.data_ptr(), g.data_ptr(), dfm.data_ptr(), b, p, h, w, c,
-            out_h, out_w, float(spatial_scale), _build.stream_ptr(fm),
+            out_h, out_w, float(spatial_scale), plan.tile[0], plan.lanes,
+            plan.threads, plan.cap, plan.chunk, plan.round, int(plan.copy16),
+            plan.blocks, plan.smem_bytes,
+            _build.stream_ptr(fm),
         )
     _build.check(rc, "roi_pool_backward")
     roi_pool_backward.launches += 1

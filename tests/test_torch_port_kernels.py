@@ -8,7 +8,8 @@ so it also runs where only PyTorch is installed:
 
 The forward kernels must equal their plain versions bit for bit: the
 RoIPool forward selects input values, and the fused BN+ReLU+pool forward
-rounds the affine exactly as the plain version does. So must the backward
+rounds the affine exactly as the plain version does (at ragged and
+unaligned shapes and under several launch plans). So must the backward
 kernels' main outputs: the RoIPool backward adds each pixel's contributions
 in the plain version's order, and the stem pool's backward routes and adds
 as its plain version does. Its d(scale)/d(shift) are sums over the whole
@@ -29,11 +30,13 @@ import pytest
 import torch
 
 from cova_tpu_torch.ops.bn_pool import (
+    _forward as bn_relu_pool_forward,
     bn_relu_pool_s2d,
     bn_relu_pool_s2d_backward,
     bn_relu_pool_s2d_backward_reference,
     bn_relu_pool_s2d_plain,
     bn_relu_pool_s2d_reference,
+    fwd_plan,
 )
 from cova_tpu_torch.ops.conv3x3 import (
     conv3x3,
@@ -44,6 +47,7 @@ from cova_tpu_torch.ops.conv3x3 import (
 from cova_tpu_torch.ops import _build
 from cova_tpu_torch.ops.roi_pool import (
     roi_bounds,
+    roi_bwd_plan,
     roi_pool,
     roi_pool_backward,
     roi_pool_backward_reference,
@@ -146,6 +150,53 @@ def test_bn_relu_pool_kernel_is_bit_exact(cuda, dtype, shape):
     assert torch.equal(got, bn_relu_pool_s2d_reference(ys, scale, shift))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 2), (2, 7, 15, 64),
+                                   (1, 9, 17, 6), (2, 17, 33, 8),
+                                   (1, 8, 1, 512)])
+@pytest.mark.parametrize("offset_bytes", [0, 8])
+def test_bn_relu_pool_kernel_ragged_and_unaligned(cuda, dtype, shape,
+                                                  offset_bytes):
+    """Maps of one s2d block, U and V across the 8 x 16 tile's edges, O
+    of 2 and 6 (pairs of channels) and 512 (many chunks), from an aligned
+    ys and from a view 8 bytes past a 16-byte boundary (pairs of channels by
+    cp.async): bit-exact."""
+    b, u, v, o = shape
+    gen = torch.Generator(device=cuda).manual_seed(u * v + o)
+    n = b * u * v * 4 * o
+    off = offset_bytes // torch.empty((), dtype=dtype).element_size()
+    flat = _tied(gen, (n + off,), dtype, cuda)
+    ys = flat[off:].view(b, u, v, 4 * o)
+    assert (ys.data_ptr() % 16 == 0) == (offset_bytes == 0)
+    scale = torch.rand(o, generator=gen, device=cuda) + 0.5
+    shift = torch.randn(o, generator=gen, device=cuda) * 0.5
+    got = bn_relu_pool_s2d(ys, scale, shift)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bn_relu_pool_s2d_reference(ys, scale, shift))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("knobs", [dict(stages=3),
+                                   dict(stages=4, chunk_bytes=32),
+                                   dict(blocks_per_sm=3, chunk_bytes=32),
+                                   dict(chunk_bytes=128)],
+                         ids=str)
+def test_bn_relu_pool_kernel_plans(cuda, dtype, knobs):
+    """The forward kernel under other plans than the default (deeper rings
+    of stages, smaller and larger chunks, more blocks): bit-exact."""
+    b, u, v, o = 2, 33, 50, 64
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    ys = torch.randn(b, u, v, 4 * o, generator=gen, device=cuda).to(dtype)
+    scale = torch.randn(o, generator=gen, device=cuda)
+    shift = torch.randn(o, generator=gen, device=cuda)
+    plan = fwd_plan(dtype, b, u, v, o, **knobs)
+    got = bn_relu_pool_forward(ys, scale, shift, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bn_relu_pool_s2d_reference(ys, scale, shift))
+
+
 def _tied(gen, shape, dtype, device, levels=8.0):
     """Normal values rounded to 1/levels: many exact ties."""
     x = torch.randn(*shape, generator=gen, device=device)
@@ -170,6 +221,32 @@ def test_roi_pool_backward_kernel_is_bit_exact(cuda, dtype, b, h, w, c, p):
     assert roi_pool_backward.launches == before + 1
     want = roi_pool_backward_reference(fm, boxes, mask, pooled, g, 0.25)
     assert got.dtype == dtype and got.shape == fm.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("knobs", [dict(cap=8, round_=4, chunk=3),
+                                   dict(chunk=64, blocks_per_sm=8),
+                                   dict(blocks_per_sm=1)],
+                         ids=str)
+def test_roi_pool_backward_kernel_plans(cuda, dtype, knobs):
+    """The backward kernel under other plans: a pair list of 8 filled 4
+    candidates at a time and staged 3 pairs at a time (every tile walks
+    several lists and chunks), larger chunks and more blocks, one block per
+    SM: bit-exact."""
+    b, h, w, c, p = 2, 40, 36, 64, 50
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    rng = np.random.default_rng(5)
+    fm = _tied(gen, (b, h, w, c), dtype, cuda, levels=2.0)
+    boxes, mask = _boxes(rng, b, p, 4 * max(h, w))
+    boxes, mask = boxes.to(cuda), mask.to(cuda)
+    pooled = roi_pool_reference(fm, boxes, mask, 0.25)
+    g = torch.randn(pooled.shape, generator=gen, device=cuda).to(dtype)
+    plan = roi_bwd_plan(dtype, b, p, h, w, c, 3, 3, **knobs)
+    got = roi_pool_backward(fm, boxes, mask, pooled, g, 0.25, plan=plan)
+    torch.cuda.synchronize()
+    want = roi_pool_backward_reference(fm, boxes, mask, pooled, g, 0.25)
     assert torch.equal(got, want)
 
 

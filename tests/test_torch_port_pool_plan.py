@@ -1,16 +1,21 @@
 """The launch plans and the schedule-following plain versions of the port's
-RoIPool forward (K1) and fused stem BN+ReLU+pool backward (K6) kernels
-(``cova_tpu_torch/ops/roi_pool.py``, ``ops/bn_pool.py``), on the CPU.
+RoIPool forward (K1) and backward (K3), and fused stem BN+ReLU+pool forward
+(K5) and backward (K6) kernels (``cova_tpu_torch/ops/roi_pool.py``,
+``ops/bn_pool.py``), on the CPU.
 
 The CUDA kernels run only on the card, so what can be checked here is their
 decomposition: ``roi_pool_pyramid_reference`` builds the chunk-max pyramid
 and splits every bin into edge rows, pyramid chunks and pixel slots as the
-kernel does; ``bn_relu_pool_s2d_backward_tiled_reference`` walks the
-kernel's tiles with their halos, computes each output's winner code once
-and gathers in the kernel's order. Both must equal the plain versions bit
-for bit (K6's d(scale)/d(shift): within rtol 1e-5, f32 sums in another
-order), and one case of each must equal the JAX package's Pallas kernel in
-interpret mode. The plans are held to the card's shared memory.
+kernel does; ``roi_pool_backward_tiled_reference`` lists each tile's (box,
+bin) pairs in the kernel's order and capacity and walks them;
+``bn_relu_pool_s2d_tiled_reference`` stages the forward kernel's tiles with
+their halo row and column and takes the maxima in its three stages;
+``bn_relu_pool_s2d_backward_tiled_reference`` walks the backward kernel's
+tiles with their halos, computes each output's winner code once and gathers
+in the kernel's order. All must equal the plain versions bit for bit (K6's
+d(scale)/d(shift): within rtol 1e-5, f32 sums in another order), and one
+case of each must match the JAX package's Pallas kernel in interpret mode.
+The plans are held to the card's shared memory.
 """
 
 import itertools
@@ -27,10 +32,19 @@ from cova_tpu_torch.ops import bn_pool, roi_pool
 from cova_tpu_torch.ops.bn_pool import (
     bn_relu_pool_s2d_backward_reference,
     bn_relu_pool_s2d_backward_tiled_reference,
+    bn_relu_pool_s2d_reference,
+    bn_relu_pool_s2d_tiled_reference,
     bwd_plan,
+    fwd_plan,
 )
 from cova_tpu_torch.ops.roi_pool import (
+    _tile_lists,
     bin_rows,
+    roi_bounds,
+    roi_bwd_plan,
+    roi_bwd_tile_pairs,
+    roi_pool_backward_reference,
+    roi_pool_backward_tiled_reference,
     roi_pool_plan,
     roi_pool_pyramid_reference,
     roi_pool_reference,
@@ -165,6 +179,235 @@ def test_roi_pool_plan_refuses_what_the_kernel_does_not_take():
         roi_pool_plan(torch.float32, 1, 1, 8, 8, 4, 5, 7)
     with pytest.raises(TypeError):
         roi_pool_plan(torch.float16, 1, 1, 8, 8, 4, 3, 3)
+
+
+# ---------------------------------------------------------------- K3
+
+
+def _tied_roi_case(name, b, h, w, c, p, special, all_masked, dtype):
+    """fm on a coarse grid (values k/2: many ties in every bin), the boxes
+    of ``_roi_boxes`` and a cotangent in fm's dtype."""
+    rng = np.random.default_rng(len(name) + c + 100)
+    fm = _t((rng.integers(-3, 4, size=(b, h, w, c)) / 2).astype(
+        np.float32)).to(dtype)
+    boxes, mask = _roi_boxes(rng, b, p, h, w, special)
+    if all_masked:
+        mask[:] = False
+    g = _t(rng.normal(size=(b, p, 1, 1, c)).astype(np.float32))
+    return fm, _t(boxes), _t(mask), g
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", ROI_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("small_list", [False, True],
+                         ids=["default_plan", "list_of_8"])
+def test_backward_tiled_reference_is_bit_exact(case, dtype, small_list):
+    """Ties everywhere, masked boxes, empty bins (rois shorter than the
+    bins), boxes past the map's edge; with the default plan and with a pair
+    list of 8 filled 4 candidates at a time and staged 3 pairs at a time, so
+    tiles walk their pairs in several lists and chunks: dfm bit for bit."""
+    name, (b, h, w, c, p), (oh, ow), special, all_masked = case
+    fm, boxes, mask, g1 = _tied_roi_case(name, b, h, w, c, p, special,
+                                         all_masked, dtype)
+    pooled = roi_pool_reference(fm, boxes, mask, 0.25, oh, ow)
+    g = g1.expand(b, p, oh, ow, c).contiguous().to(dtype)
+    plan = roi_bwd_plan(dtype, b, p, h, w, c, oh, ow)
+    if small_list:
+        plan = roi_bwd_plan(dtype, b, p, h, w, c, oh, ow, cap=8, round_=4,
+                            chunk=3)
+        bd = roi_bounds(boxes, mask, 0.25, oh, ow, h, w).tolist()
+        n_lists = max(len(_tile_lists(bd[0], y0, x0, 8, 8, oh, ow, plan))
+                      for y0 in range(0, h, 8) for x0 in range(0, w, 8))
+        assert all_masked or n_lists > 1
+    args = (fm, boxes, mask, pooled, g, 0.25, oh, ow)
+    want = roi_pool_backward_reference(*args)
+    got = roi_pool_backward_tiled_reference(*args, plan=plan)
+    assert got.dtype == dtype and got.shape == fm.shape
+    assert torch.equal(got, want)
+    if not all_masked:
+        assert bool((want != 0).any())  # gradient flowed
+
+
+def test_backward_tiled_reference_matches_pallas_interpret_tie_free():
+    """Tie-free f32 map: each bin routes its cotangent to its one maximum
+    in both; the Pallas pyramid backward adds a pixel's contributions from
+    overlapping boxes in another order (its chunk routing), so rtol 1e-5
+    and atol 1e-6, as ``test_torch_port_backward.py`` holds the plain
+    version."""
+    rng = np.random.default_rng(13)
+    b, h, w, c, p = 2, 37, 20, 8, 12
+    n = b * h * w * c
+    fm = (rng.permutation(n) / n * 4 - 2).astype(np.float32).reshape(
+        b, h, w, c)
+    boxes, mask = _roi_boxes(rng, b, p, h, w, [(0, 32, 60, 124),
+                                               (0, 0, 80, 148)])
+    g = rng.normal(size=(b, p, 3, 3, c)).astype(np.float32)
+
+    def loss(f):
+        out = roi_pool_pallas(f, jnp.asarray(boxes), jnp.asarray(mask), 0.25,
+                              3, 3, True)
+        return jnp.sum(out * jnp.asarray(g))
+
+    want = np.asarray(jax.grad(loss)(jnp.asarray(fm)))
+    pooled = roi_pool_reference(_t(fm), _t(boxes), _t(mask), 0.25)
+    got = roi_pool_backward_tiled_reference(_t(fm), _t(boxes), _t(mask),
+                                            pooled, _t(g), 0.25)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ROI_CASES[:5], ids=lambda c: c[0])
+def test_tile_pairs_count_the_kernels_lists(case):
+    """``roi_bwd_tile_pairs`` (what ``chip_smoke.py`` reports per tile)
+    counts exactly the pairs of the kernel's lists."""
+    name, (b, h, w, c, p), (oh, ow), special, _ = case
+    rng = np.random.default_rng(len(name))
+    boxes, mask = _roi_boxes(rng, b, p, h, w, special)
+    bd = roi_bounds(_t(boxes), _t(mask), 0.25, oh, ow, h, w)
+    plan = roi_bwd_plan(torch.float32, b, p, h, w, c, oh, ow)
+    got = roi_bwd_tile_pairs(bd, h, w, oh, ow, plan.tile)
+    rows = bd.tolist()
+    want = [[[sum(map(len, _tile_lists(rows[i], y0, x0, 8, 8, oh, ow, plan)))
+              for x0 in range(0, w, 8)] for y0 in range(0, h, 8)]
+            for i in range(b)]
+    assert torch.equal(got, torch.tensor(want))
+
+
+@pytest.mark.parametrize("dtype,c,aligned,lanes,copy16", [
+    (torch.bfloat16, 64, True, 32, True), (torch.bfloat16, 64, False, 32,
+                                           False),
+    (torch.bfloat16, 6, True, 3, False), (torch.bfloat16, 130, True, 32,
+                                          False),
+    (torch.float32, 64, True, 32, True), (torch.float32, 512, True, 32,
+                                          True),
+])
+def test_roi_bwd_plan_fits_shared_memory(dtype, c, aligned, lanes, copy16):
+    """8 x 8 tiles, a thread per tile row and channel pair (whole warps,
+    at most 256 threads), 16-byte stage copies where rows and addresses
+    allow, a layout within the card's 227 KB and room for the planned
+    blocks on an SM, and a list that takes a whole round."""
+    for p in (1, 232, 8192):
+        plan = roi_bwd_plan(dtype, 5, p, 320, 320, c, 3, 3, aligned)
+        assert plan.tile == (8, 8) and plan.lanes == lanes
+        assert plan.passes == -(-(c // 2) // lanes)
+        assert plan.threads % 32 == 0 and plan.threads <= 256
+        assert plan.threads >= plan.lanes * 8
+        assert plan.copy16 == copy16
+        assert plan.round <= min(plan.threads, plan.cap)
+        assert plan.smem_bytes <= bn_pool.SMEM_MAX
+        per_sm = -(-plan.blocks // bn_pool.N_SMS)
+        assert per_sm * (plan.smem_bytes + bn_pool.SMEM_RESERVED) <= \
+            bn_pool.SMEM_PER_SM
+        assert plan.n_tiles == 5 * 40 * 40
+
+
+def test_roi_bwd_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        roi_bwd_plan(torch.float32, 1, 1, 8, 8, 5, 3, 3)
+    with pytest.raises(ValueError):
+        roi_bwd_plan(torch.float32, 1, 1, 8, 8, 4, 5, 7)
+    with pytest.raises(ValueError):
+        roi_bwd_plan(torch.float32, 1, 8193, 8, 8, 4, 3, 3)
+    with pytest.raises(ValueError):  # a round larger than the list
+        roi_bwd_plan(torch.float32, 1, 1, 8, 8, 4, 3, 3, cap=4, round_=8)
+    with pytest.raises(TypeError):
+        roi_bwd_plan(torch.float16, 1, 1, 8, 8, 4, 3, 3)
+
+
+# ---------------------------------------------------------------- K5
+
+
+def _fwd_plan_with_tile(plan, tile, b, u, v):
+    """``plan`` walking tiles of another shape (the plain version follows
+    any tile; the kernel takes FWD_TILE only)."""
+    n_tiles = b * -(-u // tile[0]) * -(-v // tile[1])
+    return plan._replace(tile=tile, n_tiles=n_tiles,
+                         n_walkers=min(plan.n_walkers, n_tiles))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("tile", [bn_pool.FWD_TILE, (1, 1), (3, 5), (4, 8)],
+                         ids=str)
+@pytest.mark.parametrize("ku,kv", [(0, 0), (1, 2), (2, 1), (2, 2)])
+def test_fwd_tiled_reference_is_bit_exact(ku, kv, tile, dtype):
+    """U and V of 1, one below and one above the tile (8 x 16 is the
+    kernel's), with ties: the halo row and column, their -inf at the map's
+    top and left, and the three max stages equal the plain version bit for
+    bit. O cycles through 6 (pairs of channels), 8 and 64 (several
+    chunks)."""
+    tu, tv = bn_pool.FWD_TILE
+    u, v = _side(tu, ku), _side(tv, kv)
+    o = (6, 8, 64)[(ku + 2 * kv) % 3]
+    ys, scale, shift, _ = (_t(a) for a in _tied_bn_case(2, u, v, o, u + v))
+    ys = ys.to(dtype)
+    plan = _fwd_plan_with_tile(fwd_plan(dtype, 2, u, v, o), tile, 2, u, v)
+    want = bn_relu_pool_s2d_reference(ys, scale, shift)
+    got = bn_relu_pool_s2d_tiled_reference(ys, scale, shift, plan)
+    assert got.dtype == dtype and torch.equal(got, want)
+    # shift < 0 leaves zeros where the ReLU cut: both must agree there too.
+    assert bool((want > 0).any())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_fwd_tiled_reference_is_bit_exact_on_continuous_inputs(dtype):
+    """Normal ys, scale and shift (the affine rounds in f32): the same."""
+    rng = np.random.default_rng(3)
+    ys = _t(rng.normal(size=(2, 17, 33, 4 * 64)).astype(np.float32)).to(
+        dtype)
+    scale = _t(rng.normal(size=(64,)).astype(np.float32))
+    shift = _t(rng.normal(size=(64,)).astype(np.float32))
+    assert torch.equal(bn_relu_pool_s2d_tiled_reference(ys, scale, shift),
+                       bn_relu_pool_s2d_reference(ys, scale, shift))
+
+
+def test_fwd_tiled_reference_matches_pallas_interpret():
+    """Ties everywhere, dyadic values (every affine exact in f32, so the
+    Pallas kernel's possible fused multiply-add rounds nothing): equal to
+    the Pallas forward in interpret mode."""
+    ys, scale, shift, _ = _tied_bn_case(2, 16, 16, 8, seed=9)
+    want = np.asarray(jax_bn_relu_pool(
+        jnp.asarray(ys), jnp.asarray(scale), jnp.asarray(shift),
+        interpret=True))
+    got = bn_relu_pool_s2d_tiled_reference(_t(ys), _t(scale), _t(shift))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_fwd_plan_fits_shared_memory(dtype, aligned):
+    """For every even O <= 512: a chunk that divides O in whole accesses
+    (16 bytes where O and the address allow), at most 256 threads that
+    cover every column of the tile and split its rows evenly, the stages
+    within the card's 227 KB with room for the planned blocks on an SM."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    for o in range(2, 513, 2):
+        plan = fwd_plan(dtype, 10, 320, 320, o, aligned=aligned)
+        vec = 16 // isz if aligned and o % (16 // isz) == 0 else 2
+        assert plan.vec == vec
+        assert plan.fc % vec == 0 and o % plan.fc == 0
+        assert plan.n_chunks == o // plan.fc
+        assert plan.fc == vec or plan.fc * isz <= bn_pool.FWD_CHUNK_BYTES
+        tu, tv = plan.tile
+        assert tu % plan.row_splits == 0
+        assert plan.threads == plan.fc // vec * tv * plan.row_splits <= 256
+        assert plan.smem_bytes <= bn_pool.SMEM_MAX
+        assert bn_pool.FWD_BLOCKS_PER_SM * (
+            plan.smem_bytes + bn_pool.SMEM_RESERVED) <= bn_pool.SMEM_PER_SM
+        assert plan.smem_bytes >= 128 + plan.stages * (
+            (tu + 1) * 4 * (tv + 1) * plan.fc * isz + 8)
+        assert 1 <= plan.n_walkers <= plan.n_tiles == 10 * 40 * 20
+
+
+def test_fwd_plan_refuses_what_the_kernel_does_not_take():
+    for o in (3, 514):
+        with pytest.raises(ValueError):
+            fwd_plan(torch.float32, 1, 4, 4, o)
+    with pytest.raises(ValueError):
+        fwd_plan(torch.float32, 1, 4, 4, 8, stages=5)
+    with pytest.raises(ValueError):  # no room for 3 blocks of 4 stages
+        fwd_plan(torch.bfloat16, 1, 4, 4, 64, stages=4, chunk_bytes=128,
+                 blocks_per_sm=3)
+    with pytest.raises(TypeError):
+        fwd_plan(torch.float16, 1, 4, 4, 8)
 
 
 # ---------------------------------------------------------------- K6
