@@ -63,10 +63,15 @@ Phases, each printing one JSON line:
    B = 10 ([10, 320, 320, 64] -> 64 and the stem's [10, 320, 320, 48] ->
    256), with ``conv3x3``'s dx and dW against the plain pair; bf16 within
    2^-7 of the largest output, f32 within 1e-5 of it, with the share of
-   elements that are not bit-equal; times beside the plain version's,
-   ``F.conv2d``'s (cuDNN, TF32 off), the wmma kernels' that these replaced
-   and the bound (989 TFLOP/s bf16, 67 TFLOP/s f32, 3.35 TB/s), with the
-   achieved TFLOP/s and the bound's share of the time.
+   elements that are not bit-equal (f32 at the model's shapes also beside
+   a float64 conv: max and rms error of each kernel, the plain version and
+   cuDNN); ten timings each (median and spread) beside the plain
+   version's, ``F.conv2d``'s (cuDNN, TF32 off), the kernels' that these
+   replaced (bf16: wmma; f32: FMAs) and the bound
+   (989 TFLOP/s bf16; f32 the lesser of two routes, 67 TFLOP/s of FMAs or
+   three passes at 494.7 TFLOP/s TF32; 3.35 TB/s), with the achieved
+   TFLOP/s and the bound's share of the time. The build line lists the
+   conv kernels' registers and spills, and any wgmma ptxas serialized.
 7. conv: with ``COVA_CUDA_CONV=1``, one B = 10 batch served and ``cli
    train`` for one epoch at B = 5, at full width; ``conv3x3`` must launch 5
    times per forward and 4 more per backward and ``F.conv2d`` must run no
@@ -74,7 +79,8 @@ Phases, each printing one JSON line:
    against the opt-in-off run from the same weights, and one step's
    gradients against the plain nine-product conv's (f32, at the train
    phase's tolerance) and within cuDNN's own distance from it (f32 and
-   bf16; see the note in ``phase_conv``); then ``conv3x3``,
+   bf16; see the note in ``phase_conv``), and in f32 each conv's distance
+   from a float64 conv's gradients (reported); then ``conv3x3``,
    ``conv3x3_roll`` and cuDNN on a served feature map.
 8. backbones: the full ``resnet18`` under the opt-in (the kernel at 128,
    256 and 512 channels) and ``resnet50_stem`` with and without
@@ -98,6 +104,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -108,6 +115,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
+TF32_OPS_PER_S = 494.7e12  # H100 SXM TF32 on the tensor cores, dense
 SEED = 123
 B, IMG, P, CTX = 10, 1280, 232, 12
 N_PAGES, MAX_PAGES = 100, 20  # predict serves the 20-page test split
@@ -647,9 +655,14 @@ CONV_STEM = (B, IMG // 4, IMG // 4, 48, 256)
 # leaves a factor of two. f32: only the order of the sum differs.
 CONV_TOL = {"torch.bfloat16": 2.0 ** -7, "torch.float32": 1e-5}
 # ms of the wmma kernels (no ring, weights re-read per tile) that the bf16
-# kernels replaced, on an NVIDIA H100 80GB HBM3 at 700 W, by this script.
+# kernels replaced, and of the FMA kernels (CUDA cores, one block per tile)
+# that the split-TF32 f32 kernels replaced, on an NVIDIA H100 80GB HBM3 at
+# 700 W, by this script.
 CONV_WMMA_MS = {"conv3x3_fwd": 1.0127, "conv3x3_fwd_stem": 3.0614,
                 "conv3x3_roll_fwd": 1.5580, "conv3x3_roll_fwd_stem": 4.633}
+CONV_FMA_MS = {"conv3x3_fwd_f32": 3.7017, "conv3x3_fwd_stem_f32": 10.5970,
+               "conv3x3_roll_fwd_f32": 4.0154,
+               "conv3x3_roll_fwd_stem_f32": 12.8414}
 
 
 def conv_operands(torch, gen, shape, dtype, dev):
@@ -676,13 +689,49 @@ def conv_compare(torch, got, want, what):
                 not_bit_equal=float((got != want).float().mean()))
 
 
+def float64_error(got, exact):
+    """Max and rms of ``got - exact`` over the largest |exact|."""
+    d = got.double() - exact
+    top = float(exact.abs().max())
+    return dict(max=float(d.abs().max()) / top,
+                rms=float(d.pow(2).mean().sqrt()) / top)
+
+
+def conv_float64(torch, x, w):
+    """The 3x3 conv taken in float64 (cuDNN) and rounded once to x.dtype,
+    with ``conv3x3``'s gradient rule: the exact side of any near-tie."""
+    import torch.nn.functional as F
+
+    from cova_tpu_torch.ops.conv3x3 import _Conv3x3
+
+    def fwd(a, b):
+        y = F.conv2d(a.double().permute(0, 3, 1, 2),
+                     b.double().permute(3, 2, 0, 1), padding=1)
+        return y.permute(0, 2, 3, 1).to(a.dtype).contiguous()
+
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Conv3x3.apply(x, w, fwd)
+    return fwd(x, w)
+
+
 def conv_bound(shape, itemsize, dtype_name):
+    """The least time for the conv: bytes over the memory rate or operations
+    over the peak rate, the larger. f32 has two routes to f32 accuracy, FMAs
+    on the CUDA cores or three TF32 passes on the tensor cores (split TF32);
+    its bound is the lesser of the two, and ``bound_by`` names the route."""
     b, h, w, c, o = shape
     n_bytes = (b * h * w * (c + o) + 9 * c * o) * itemsize
     n_ops = 2 * 9 * c * o * b * h * w
-    rate = BF16_OPS_PER_S if dtype_name == "torch.bfloat16" else F32_OPS_PER_S
-    ms, by = bound_ms(n_bytes, n_ops, rate)
-    return dict(bound_ms=ms, bound_by=by, bytes=n_bytes, operations=n_ops)
+    if dtype_name == "torch.bfloat16":
+        ms, by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+        return dict(bound_ms=ms, bound_by=by, bytes=n_bytes, operations=n_ops)
+    routes = {"fma": bound_ms(n_bytes, n_ops, F32_OPS_PER_S),
+              "split_tf32": bound_ms(n_bytes, 3 * n_ops, TF32_OPS_PER_S)}
+    route = min(routes, key=lambda r: routes[r][0])
+    ms, by = routes[route]
+    return dict(bound_ms=ms, bound_by=by, bound_route=route,
+                bound_ms_by_route={r: v[0] for r, v in routes.items()},
+                bytes=n_bytes, operations=n_ops)
 
 
 def phase_conv_kernels(torch, dev):
@@ -740,29 +789,42 @@ def phase_conv_kernels(torch, dev):
                        **conv_bound(shape, x.element_size(), str(dtype)))
             row["library_vs_plain"] = float(
                 (lib.float() - want.float()).abs().max())
+            if dtype == torch.float32:
+                # Error against a float64 conv, relative to its largest
+                # output: max and rms, for the plain version and cuDNN
+                # here, for each kernel below.
+                exact = F.conv2d(x_nchw.double(), k_oihw.double(),
+                                 padding=1).permute(0, 2, 3, 1)
+                row["vs_float64"] = {
+                    "plain": float64_error(want, exact),
+                    "library": float64_error(lib, exact)}
             row["plain_ms"] = cuda_ms(
                 torch, lambda: conv3x3_reference(x, k), reps=2)
             row["library_ms"] = cuda_ms(
                 torch, lambda: F.conv2d(x_nchw, k_oihw, padding=1), reps=10,
                 warmup=3)
-            slow = dtype == torch.float32
             for name, fn in (("conv3x3_fwd", conv3x3),
                              ("conv3x3_roll_fwd", conv3x3_roll)):
                 got = fn(x, k)
                 torch.cuda.synchronize()
                 cmp_ = conv_compare(torch, got, want,
                                     f"{name} {label} {dtype}")
-                ms = cuda_ms(torch, lambda: fn(x, kd), reps=3 if slow else 10,
-                             warmup=1 if slow else 3)
+                t = timings(torch, lambda: fn(x, kd), reps=10)
                 key = name + ("" if label == "layer1" else "_stem") + (
-                    "_f32" if slow else "")
+                    "_f32" if dtype == torch.float32 else "")
                 results[key] = dict(
-                    row, ms=ms, tflops=row["operations"] / ms / 1e9,
-                    bound_share=row["bound_ms"] / ms, **cmp_)
+                    row, **t, tflops=row["operations"] / t["ms"] / 1e9,
+                    bound_share=row["bound_ms"] / t["ms"], **cmp_)
+                if dtype == torch.float32:
+                    results[key]["vs_float64"] = dict(
+                        row["vs_float64"], kernel=float64_error(got, exact))
                 if key in CONV_WMMA_MS:
                     results[key]["wmma_ms"] = CONV_WMMA_MS[key]
+                if key in CONV_FMA_MS:
+                    results[key]["fma_ms"] = CONV_FMA_MS[key]
                 del got
-            del x, k, want, lib
+            del x, k, want, lib, row
+            exact = None
     # K7 as the backward uses it, at the train batch: dx of layer1's conv.
     shape = (TRAIN_B,) + CONV_LAYER1[1:]
     x, k = conv_operands(torch, gen, shape, torch.bfloat16, dev)
@@ -1334,6 +1396,15 @@ def phase_conv(torch, dev, tmp):
             _, g_plain = step_grads(torch, probe, sd, tb, SEED)
         need(launch_counts()["conv3x3_fwd"] == before,
              "K7 launched in the plain-conv run")
+        if dtype == "float32":  # reported, not held: where exact lies
+            with conv_opt_in(watch=False), mock.patch.object(
+                    conv_mod, "conv3x3",
+                    lambda x, w: conv_float64(torch, x, w)):
+                _, g_exact = step_grads(torch, probe, sd, tb, SEED)
+            vs_float64 = {name: grad_diff(g, g_exact)["share_of_tolerance"]
+                          for name, g in (("opt_in", g_on), ("cudnn", g_off),
+                                          ("plain_conv", g_plain))}
+            del g_exact
         need(abs(loss_on - loss_off) <= 1e-3 * abs(loss_off),
              f"{dtype} train losses {loss_on} (opt-in) vs {loss_off}")
         row = dict(loss_opt_in=loss_on, loss_opt_in_off=loss_off,
@@ -1344,6 +1415,8 @@ def phase_conv(torch, dev, tmp):
                        g_on, g_off),
                    elements_beyond_1e_3_vs_plain_conv=grad_element_share(
                        g_on, g_plain))
+        if dtype == "float32":
+            row["share_of_tolerance_vs_float64_conv"] = vs_float64
         share = {k: row[k]["share_of_tolerance"] for k in (
             "vs_opt_in_off", "vs_plain_conv", "cudnn_vs_plain_conv")}
         if dtype == "float32":
@@ -1538,8 +1611,15 @@ def main() -> int:
              if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": sorted(reports), "ptxas": ptxas,
-          "conv_bf16": ptxas_report(reports.get("conv3x3", ""), (
-              "conv3x3_fwd_bf16_kernel", "conv3x3_roll_fwd_bf16_kernel")),
+          "conv": ptxas_report(reports.get("conv3x3", ""), (
+              "conv3x3_fwd_bf16_kernel", "conv3x3_roll_fwd_bf16_kernel",
+              "conv3x3_fwd_f32_kernel", "conv3x3_roll_fwd_f32_kernel")),
+          # What ptxas says of the conv kernels' wgmma: where it serialized
+          # them (none expected) or injected register fences (C7519).
+          "conv_wgmma_notes": sorted({
+              re.sub(r"around line \d+ ", "", line).split(" in function")[0]
+              .strip() for line in reports.get("conv3x3", "").splitlines()
+              if "gmma" in line.lower()}),
           "pool": {**ptxas_report(reports.get("roi_pool", ""), (
               "roi_pool_pyramid_kernel", "roi_pool_bins_kernel",
               "roi_pool_bwd_kernel")),
@@ -1569,6 +1649,7 @@ def main() -> int:
               "peaks": {"hbm_bytes_per_s": HBM_BYTES_PER_S,
                         "bf16_ops_per_s": BF16_OPS_PER_S,
                         "f32_ops_per_s": F32_OPS_PER_S,
+                        "tf32_ops_per_s": TF32_OPS_PER_S,
                         "source": "NVIDIA H100 SXM data sheet, dense"}})
     if not only or "serve" in only:
         with tempfile.TemporaryDirectory() as tmp:

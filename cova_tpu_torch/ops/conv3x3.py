@@ -23,6 +23,10 @@ Counterpart of ``cova_tpu/ops/conv3x3.py``, with its names:
     walk, zero-filled boxes, per-tap products; the roll kernel's panel and
     its carry between the tiles of a row). The tests use them to check the
     index arithmetic where there is no card.
+  * ``conv3x3_split_tf32_reference``: the f32 kernels' arithmetic in plain
+    PyTorch (each operand split into a TF32 hi, rounded to nearest, and the
+    rest; three products summed in f32). The tests use it to show that the
+    split holds f32's tolerance where one TF32 pass does not.
   * ``use_cuda_conv()`` / ``conv3x3_auto(x, w)``: the opt-in gate
     (``COVA_CUDA_CONV=1``, off by default, where ``F.conv2d`` runs).
 
@@ -31,17 +35,18 @@ is [B, H, W, O] in x.dtype. On a CUDA tensor ``conv3x3`` and
 ``conv3x3_roll`` launch their kernel or raise (bf16 and f32, C and O
 multiples of 16); on a CPU tensor they run the plain version.
 
-The bf16 kernels are built for Hopper: persistent blocks of two consumer
+The kernels are built for Hopper: persistent blocks of two consumer
 warpgroups and a producer warp, TMA loads into a ring of shared-memory
-stages with zero fill outside the image, ``wgmma`` products read from
-shared memory in the 128-byte swizzle, f32 accumulators stored from
-registers. Every shape the wrapper takes goes to them; which of two modes
-runs is chosen here, by shape: with C in one chunk (C <= 64, or 48) the
-weights of the block's output chunk stay in shared memory for all its
-tiles; with more chunks (128, 256, 512 channels) each ring stage carries
-its weight chunk and the output chunk is 32 wide. The f32 kernels are
-plain FMA kernels with one block per tile. ``csrc/conv3x3.cu`` says what
-bounds each on the card.
+stages with zero fill outside the image, ``wgmma`` products with B read
+from shared memory in the 128-byte swizzle, f32 accumulators stored from
+registers. bf16 reads A from shared memory too; f32 runs split TF32 (three
+tensor-core passes, A split in registers, the weights split into hi and lo
+planes in shared memory). Every shape the wrapper takes goes to them;
+which of two modes runs is chosen here, by shape: where the weights of the
+block's output chunk fit beside a two-stage ring (bf16: C in one chunk of
+up to 64; f32: the hi and lo planes of every 32-channel chunk) they stay in
+shared memory for all its tiles; else each ring stage carries its weight
+chunk. ``csrc/conv3x3.cu`` says what bounds each on the card.
 """
 
 from __future__ import annotations
@@ -65,18 +70,17 @@ KERNELS = ("conv3x3", "conv3x3_roll")
 
 # The constants of csrc/conv3x3.cu.
 SMEM_MAX = 232_448          # shared memory a block can ask for
-SWIZZLE_ROW = 128           # bytes: 64 bf16 channels of a pixel or weight row
+SWIZZLE_ROW = 128           # bytes: 64 bf16 or 32 f32 channels of a row
 SWIZZLE_ATOM = 1024         # bytes: 8 swizzle rows; stage bases lie on it
 MAX_STAGES = 4
 K7_TILE = (16, 16)          # output rows, columns of a tile
+K7_F32_TILE = (16, 8)
 K8_TILE = (2, 64)           # output rows of a strip, columns of a tile
+F32_CHUNK = 32              # f32 channels of a chunk: one swizzle row
 _BF16_C_CHUNKS = (64, 48, 32, 16)
 _BF16_O_CHUNKS = (64, 32, 16)
-_F32_C_CHUNKS = (32, 16)
-_F32_O_CHUNKS = (64, 48, 32, 16)
-_F32_TILE = {"conv3x3": (8, 16), "conv3x3_roll": (4, 30)}
-# f32: the batch is a grid dimension, and so is the number of output chunks.
-_MAX_GRID = 65535
+# f32: K8's panels leave no room for 32 output channels beside the weights.
+_F32_O_CHUNKS = {"conv3x3": (32, 16), "conv3x3_roll": (16,)}
 _MAX_ITEMS = 2 ** 31 - 1
 
 
@@ -85,17 +89,20 @@ class LaunchPlan(NamedTuple):
 
     kernel: str        # "conv3x3" or "conv3x3_roll"
     dtype: torch.dtype
-    kc: int            # input channels of a chunk; divides C
+    kc: int            # input channels of a chunk (bf16: divides C; f32:
+                       # 32, the last chunk zero-filled beyond C)
     oc: int            # output channels of a chunk; divides O
     n_cc: int
     n_oc: int
     stationary: bool   # the weights stay in shared memory across tiles
-    stages: int        # ring stages (1: no ring, the f32 kernels)
+    stages: int        # ring stages
     smem_bytes: int
     tile: Tuple[int, int]   # output rows, columns a work step stores
     box: Tuple[int, int]    # input rows, columns a stage holds
     stage_bytes: int        # bytes of a ring stage (input and its weights)
-    weight_bytes: int       # bytes of one weight chunk [9, oc, 64 channels]
+    weight_bytes: int       # bytes of one weight plane of a chunk:
+                            # [9, oc, one swizzle row]
+    planes: int             # weight planes: 1 (bf16), 2 (f32: hi and lo)
 
 
 def _chunk(n: int, options) -> int:
@@ -123,60 +130,65 @@ def launch_plan(kernel: str, dtype: torch.dtype, b: int, h: int, w: int,
         raise ValueError(f"{kernel}: need a non-empty batch and map; got "
                          f"{(b, h, w, c)}")
     roll = kernel == "conv3x3_roll"
-    if dtype == torch.float32:
-        kc, oc = _chunk(c, _F32_C_CHUNKS), _chunk(o, _F32_O_CHUNKS)
-        if b > _MAX_GRID or o // oc > _MAX_GRID:
-            raise ValueError(f"{kernel}: need B <= {_MAX_GRID}; got {b}")
-        weights = 9 * kc * oc * 4
-        if roll:
-            box, smem = (6, 32), max(6 * 32 * (kc + 4) * 4 + weights,
-                                     4 * 34 * oc * 4)
-        else:
-            box, smem = (10, 18), 10 * 18 * (kc + 4) * 4 + weights
-        return LaunchPlan(kernel, dtype, kc, oc, c // kc, o // oc, False, 1,
-                          smem, _F32_TILE[kernel], box, smem, weights)
-    kc = _chunk(c, _BF16_C_CHUNKS)
-    stationary = kc == c
-    oc = _chunk(o, _BF16_O_CHUNKS if stationary else _BF16_O_CHUNKS[1:])
-    weights = 9 * oc * SWIZZLE_ROW
+    f32 = dtype == torch.float32
+    if f32:
+        kc, planes = F32_CHUNK, 2
+        _chunk(c, (16,))  # raises unless C is a multiple of 16
+        n_cc = -(-c // kc)
+    else:
+        kc, planes = _chunk(c, _BF16_C_CHUNKS), 1
+        n_cc = c // kc
     if roll:
         tile, box = K8_TILE, (K8_TILE[0] + 2, K8_TILE[1])
-        panels = 2 * (68 + 66) * (oc + 8) * 4
         items = b * -(-h // tile[0])
     else:
-        tile, box = K7_TILE, (K7_TILE[0] + 2, K7_TILE[1] + 2)
-        panels = 0
+        tile = K7_F32_TILE if f32 else K7_TILE
+        box = (tile[0] + 2, tile[1] + 2)
         items = b * -(-h // tile[0]) * -(-w // tile[1])
     if items > _MAX_ITEMS:
         raise ValueError(f"{kernel}: {items} work items exceed {_MAX_ITEMS}")
-    stage = _round_up(box[0] * box[1] * SWIZZLE_ROW, SWIZZLE_ATOM) + (
-        0 if stationary else weights)
-    fixed = (SWIZZLE_ATOM + (weights if stationary else 0) + panels
-             + 8 * (2 * MAX_STAGES + 1))
-    stages = min(MAX_STAGES, (SMEM_MAX - fixed) // stage)
-    if stages < 2:
+    input_bytes = _round_up(box[0] * box[1] * SWIZZLE_ROW, SWIZZLE_ATOM)
+    barriers = 8 * (2 * MAX_STAGES + 1)
+
+    def fit(oc, stationary):
+        weights = 9 * oc * SWIZZLE_ROW
+        panels = 2 * (68 + 66) * (oc + 8) * 4 if roll else 0
+        fixed = (SWIZZLE_ATOM + panels + barriers
+                 + (planes * n_cc * weights if stationary else 0))
+        stage = input_bytes + (0 if stationary else planes * weights)
+        stages = min(MAX_STAGES, (SMEM_MAX - fixed) // stage)
+        return LaunchPlan(kernel, dtype, kc, oc, n_cc, o // oc, stationary,
+                          stages, fixed + stages * stage, tile, box, stage,
+                          weights, planes)
+
+    if f32:
+        # The weights stay wherever their hi and lo planes leave room for a
+        # two-stage ring.
+        oc = _chunk(o, _F32_O_CHUNKS[kernel])
+        plan = fit(oc, True)
+        if plan.stages < 2:
+            plan = fit(oc, False)
+    else:
+        stationary = n_cc == 1
+        plan = fit(_chunk(o, _BF16_O_CHUNKS if stationary
+                          else _BF16_O_CHUNKS[1:]), stationary)
+    if plan.stages < 2:
         raise ValueError(f"{kernel}: no room for a two-stage ring")
-    return LaunchPlan(kernel, dtype, kc, oc, c // kc, o // oc, stationary,
-                      stages, fixed + stages * stage, tile, box, stage,
-                      weights)
+    return plan
 
 
 def tile_walk(plan: LaunchPlan, b: int, h: int, w: int, n_sms: int = 132
               ) -> List[List[Tuple[int, int, int, int, int, int]]]:
     """Per block, the output regions it stores, in order, as (o0, image, y0,
-    y1, x0, x1), clipped to the map. bf16: ``n_oc * n_walkers`` persistent
-    blocks; block i keeps output chunk ``i % n_oc`` and walks the work items
-    ``i // n_oc, + n_walkers, ...``. f32: one block per tile."""
+    y1, x0, x1), clipped to the map: ``n_oc * n_walkers`` persistent blocks;
+    block i keeps output chunk ``i % n_oc`` and walks the work items
+    ``i // n_oc, + n_walkers, ...``."""
     th, tw = plan.tile
     ty, tx = -(-h // th), -(-w // tw)
 
     def regions(o0, bi, y, x0, x1):
         return o0, bi, y * th, min(h, (y + 1) * th), max(0, x0), min(w, x1)
 
-    if plan.dtype == torch.float32:
-        return [[regions(oi * plan.oc, bi, y, x * tw, (x + 1) * tw)]
-                for bi in range(b) for oi in range(plan.n_oc)
-                for y in range(ty) for x in range(tx)]
     roll = plan.kernel == "conv3x3_roll"
     items = b * ty * (1 if roll else tx)
     walkers = max(1, min(items, n_sms // plan.n_oc))
@@ -212,6 +224,39 @@ def conv3x3_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             a = xp[:, dy : dy + h, dx : dx + wd, :].reshape(b * h * wd, c)
             acc += (a.float() @ w[dy, dx].float())
     return acc.to(x.dtype).reshape(b, h, wd, o)
+
+
+def _tf32(t: torch.Tensor, nearest: bool) -> torch.Tensor:
+    """f32 values with their low 13 mantissa bits cleared: rounded to TF32
+    to nearest with ties away from zero (``cvt.rna.tf32.f32``), or cut, as
+    the tensor cores read an f32 operand."""
+    bits = t.contiguous().view(torch.int32)
+    if nearest:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def conv3x3_split_tf32_reference(x: torch.Tensor,
+                                 w: torch.Tensor) -> torch.Tensor:
+    """The f32 kernels' arithmetic: x and w split as v = hi + lo (hi = v
+    rounded to TF32 to nearest, lo the rest, read as TF32), nine shifted
+    products each taken as hi * hi + hi * lo + lo * hi (exact products of
+    TF32 values), summed in f32. x: f32."""
+    b, h, wd, c = x.shape
+    o = w.shape[-1]
+    w = w.to(x.dtype)
+    xh, wh = _tf32(x, True), _tf32(w, True)
+    xl, wl = _tf32(x - xh, False), _tf32(w - wh, False)
+    pads = [F.pad(t, (0, 0, 1, 1, 1, 1)) for t in (xh, xl)]
+    acc = torch.zeros((b * h * wd, o), dtype=torch.float32, device=x.device)
+    for dy in range(3):
+        for dx in range(3):
+            ah, al = (p[:, dy : dy + h, dx : dx + wd, :].reshape(-1, c)
+                      for p in pads)
+            acc += ah @ wh[dy, dx]
+            acc += ah @ wl[dy, dx]
+            acc += al @ wh[dy, dx]
+    return acc.reshape(b, h, wd, o)
 
 
 def _zero_filled_box(img: torch.Tensor, y0: int, x0: int, rows: int,
@@ -343,17 +388,36 @@ def conv3x3_roll_tiled_reference(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-_INT_ARGS = {torch.float32: 7, torch.bfloat16: 10}
-
-
 def _bind(lib) -> None:
     for fns in (_FWD_FNS, _ROLL_FNS):
-        for dtype, name in fns.items():
+        for name in fns.values():
             fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 3
-                           + [ctypes.c_int] * _INT_ARGS[dtype]
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+
+
+def tf32_weights(w: torch.Tensor) -> torch.Tensor:
+    """The f32 kernels' weight operand from w [3, 3, C, O]: each tap as
+    [O, C'], C' = C rounded up to 32 with zeros, each 32-channel chunk in
+    the column order of the kernels' A fragments (``csrc/conv3x3.cu:
+    load_a``): the channel at position 8 s + 4 h + t (t < 4, h < 2, s < KS)
+    is 2 KS t + 2 s + h, with KS = 4 k-steps, or 2 in a last chunk of 16
+    channels. One copy (two with such a chunk): it runs at every launch."""
+    c, o = w.shape[2], w.shape[3]
+    cp = _round_up(c, F32_CHUNK)
+    full = c - c % F32_CHUNK
+    out = torch.empty((3, 3, o, cp), dtype=w.dtype, device=w.device)
+    # [.., q, t, s, h, o] -> [.., o, q, s, h, t]
+    q = full // F32_CHUNK
+    out[..., :full].view(3, 3, o, q, 4, 2, 4).copy_(
+        w[:, :, :full].view(3, 3, q, 4, 4, 2, o).permute(
+            0, 1, 6, 2, 4, 5, 3))
+    if full < c:  # a last chunk of 16 channels, KS = 2
+        out[..., full : full + 16].view(3, 3, o, 2, 2, 4).copy_(
+            w[:, :, full:].reshape(3, 3, 4, 2, 2, o).permute(0, 1, 5, 3, 4, 2))
+        out[..., full + 16 :] = 0
+    return out
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, kernel: str) -> torch.Tensor:
@@ -375,10 +439,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, kernel: str) -> torch.Tensor:
         # The kernel's B operand: each tap as [O, C], cast in the same pass.
         wk = torch.empty((3, 3, o, c), dtype=x.dtype, device=x.device)
         wk.copy_(w.detach().permute(0, 1, 3, 2))
-        extra = (int(plan.stationary), plan.stages, plan.smem_bytes)
     else:
-        wk = w.detach().to(x.dtype).contiguous()
-        extra = ()
+        wk = tf32_weights(w.detach().to(x.dtype))
     out = torch.empty((b, h, wd, o), dtype=x.dtype, device=x.device)
     if x.data_ptr() % 16 or wk.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError(f"{kernel}: operands must be 16-byte aligned")
@@ -386,7 +448,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, kernel: str) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = getattr(lib, fns[x.dtype])(
             x.data_ptr(), wk.data_ptr(), out.data_ptr(), b, h, wd, c, o,
-            plan.kc, plan.oc, *extra, _build.stream_ptr(x),
+            plan.kc, plan.oc, int(plan.stationary), plan.stages,
+            plan.smem_bytes, _build.stream_ptr(x),
         )
     _build.check(rc, kernel)
     return out

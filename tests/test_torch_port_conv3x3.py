@@ -147,8 +147,9 @@ def test_chunk_choice_and_refused_shapes():
     plan = pconv.launch_plan
     assert plan("conv3x3", bf, 1, 8, 8, 48, 256).kc == 48
     assert plan("conv3x3", bf, 1, 8, 8, 512, 64).kc == 64
-    assert plan("conv3x3", f32, 1, 8, 8, 48, 256).kc == 16
-    assert plan("conv3x3", f32, 1, 8, 8, 48, 256).oc == 64
+    assert plan("conv3x3", f32, 1, 8, 8, 48, 256).kc == 32
+    assert plan("conv3x3", f32, 1, 8, 8, 48, 256).oc == 32
+    assert plan("conv3x3_roll", f32, 1, 8, 8, 48, 256).oc == 16
     assert plan("conv3x3_roll", bf, 1, 8, 8, 64, 256).oc == 64
     assert plan("conv3x3_roll", bf, 1, 8, 8, 128, 256).oc == 32  # streamed
     with pytest.raises(ValueError, match="multiple of 16"):

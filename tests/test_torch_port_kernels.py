@@ -19,10 +19,11 @@ so ties are common and the tie rules run (see the notes in ``csrc/``).
 
 The 3x3 conv kernels sum their nine products in another order than the
 plain version and round once: bf16 within 2^-7 of the largest output, f32
-within 1e-5 of it. The bf16 kernels (TMA ring, wgmma) have two modes, chosen
-by shape: weights that stay in shared memory (C in one chunk) and weights
-streamed with the input chunks (C of 128 and more); the shapes below cross
-their tile edges (8, 16 and 64 pixels) and take both modes.
+(split TF32: three tensor-core passes) within 1e-5 of it. The kernels (TMA
+ring, wgmma) have two modes, chosen by shape: weights that stay in shared
+memory and weights streamed with the input chunks; the shapes below cross
+their tile edges (8, 16 and 64 pixels) and take both modes, and the f32
+cases add the output chunks of 16 and 32 and a half-empty channel chunk.
 """
 
 import numpy as np
@@ -43,6 +44,7 @@ from cova_tpu_torch.ops.conv3x3 import (
     conv3x3_plain,
     conv3x3_reference,
     conv3x3_roll,
+    launch_plan,
 )
 from cova_tpu_torch.ops import _build
 from cova_tpu_torch.ops.roi_pool import (
@@ -385,3 +387,49 @@ def test_conv3x3_bf16_takes_views_and_f32_weights(cuda, fn):
     torch.cuda.synchronize()
     assert float((got.float() - want.float()).abs().max()) <= 2.0 ** -7 * float(
         want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", [conv3x3, conv3x3_roll])
+@pytest.mark.parametrize("shape,o,stationary,oc", [
+    ((2, 9, 30, 64), 64, True, None),      # hi and lo of two chunks stay
+    ((1, 33, 65, 48), 64, True, None),     # C = 48: channels 48..63 zero
+    ((3, 11, 7, 32), 48, True, 16),        # W = 7; O = 48: K7 at OC = 16
+    ((1, 17, 63, 160), 48, False, 16),     # streamed at OC = 16, W = 63
+    ((1, 18, 65, 128), 128, False, None),  # streamed, W = 65
+    ((2, 5, 64, 16), 32, True, None),      # C = 16: one half-empty chunk
+])
+def test_conv3x3_f32_split_tf32_plans(cuda, fn, shape, o, stationary, oc):
+    """The split-TF32 kernels under each plan the f32 launch plan makes:
+    weights kept or streamed, 16 or 32 output channels, the last channel
+    chunk zero-filled by TMA; within 1e-5 of the largest output."""
+    name = "conv3x3" if fn is conv3x3 else "conv3x3_roll"
+    plan = launch_plan(name, torch.float32, *shape, o)
+    assert plan.stationary == stationary
+    assert oc is None or plan.oc == oc
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device=cuda)
+    k = torch.randn(3, 3, c, o, generator=gen, device=cuda) * (
+        2.0 / (9 * c)) ** 0.5
+    want = conv3x3_reference(x, k)
+    got = fn(x, k)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", [conv3x3, conv3x3_roll])
+def test_conv3x3_f32_takes_views(cuda, fn):
+    """A non-contiguous f32 input (an NCHW tensor seen as NHWC) gives what
+    the plain version gives on the same operands."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    x = torch.randn(2, 48, 19, 21, generator=gen, device=cuda).permute(
+        0, 2, 3, 1)
+    k = torch.randn(3, 3, 48, 64, generator=gen, device=cuda) * 0.07
+    want = conv3x3_reference(x, k)
+    got = fn(x, k)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
