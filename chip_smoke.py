@@ -89,12 +89,33 @@ Phases, each printing one JSON line:
    time under cuDNN, and in f32 (TF32 off) through cuDNN, the kernel and the
    plain nine-product conv, with the gaps between their last losses.
 
-The train phase also feeds batches through the device prefetcher and holds
-them against the host batches byte for byte.
+9. bench: ``cli.main(["bench", ...])`` at full width in its three modes:
+   train at its default B = 8, infer at B = 32 (P bucketed to 128 for both)
+   and e2e fed from the in-memory pipeline, cut to 16 pages and one timed
+   epoch; each mode's JSON result and the kernels it launched (K1, K3, K5
+   and K6 for train and e2e; K1 and K5, not K3 or K6, for infer; no conv
+   kernel). Then the infer bench's batch is served with the kernels and
+   with the plain ops (logits within two bf16 steps of the largest, the
+   same picks), and one train-bench step's gradients are held against the
+   plain pairs' at the train phase's tolerance.
+10. export: ``cli export`` of the train phase's fold: the ``.pth``
+   strict-loads into a fresh model and holds the checkpoint's tensors (f32
+   floats, int64 counts); ``predict --torch_model`` on it picks the boxes
+   ``predict`` from the checkpoint picks.
+11. visualize: ``cli visualize --no_render`` on that fold: one attention
+   CSV per test page (finite, attention weights a softmax), through K1 and
+   K5.
+12. sweep: ``cli sweep --folds 1 2 --synthetic_hard`` on 10 pages at full
+   width, one epoch a fold: finite losses, both folds' rows of
+   ``oracle_acc.csv`` and ``sweep_summary.txt``, through K1, K3, K5, K6.
 
-(Phases run in the order 1-3, 6, 4, 5, 7, 8.) Then it prints the kernels'
-summary line (one row per TPU kernel, K1-K8), the ``nvidia-smi`` line, and,
-last,
+The train phase also feeds batches through the device prefetcher and holds
+them against the host batches byte for byte. Every phase line carries its
+seconds.
+
+(Phases run in the order 1-3, 6, 4, 5, 9-12, 7, 8.) Then it prints the
+kernels' summary line (one row per TPU kernel, K1-K8), the ``nvidia-smi``
+line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without a GPU,
 or outside the repo, it exits non-zero before printing any result.
 """
@@ -120,6 +141,12 @@ SEED = 123
 B, IMG, P, CTX = 10, 1280, 232, 12
 N_PAGES, MAX_PAGES = 100, 20  # predict serves the 20-page test split
 TRAIN_B, TRAIN_PAGES = 5, 40  # the flagship train batch; a 24/8/8 split
+# The benches at their own batches: train at its default B = 8, infer at
+# B = 32; e2e cut to 16 pages and one timed epoch (its defaults are 64
+# pages and three epochs) to keep the phase short.
+BENCH_TRAIN_B, BENCH_INFER_B = 8, 32
+E2E_PAGES, E2E_EPOCHS = 16, 1
+SWEEP_PAGES = 10  # per fold a 6/2/2 split
 # Kernel-vs-plain train step: every parameter gradient within GRAD_RTOL of
 # its tensor's largest gradient, plus GRAD_ATOL of the model's largest
 # gradient. The two runs share the forward bit for bit; in the backward,
@@ -1072,6 +1099,27 @@ def grad_element_share(a, b, rel=1e-3):
     return off / total
 
 
+def train_flags(tmp):
+    """The CLI flags of the train phase's fold (full width, 40 pages)."""
+    return ["--synthetic", str(TRAIN_PAGES), "--img_height", str(IMG),
+            "--output_dir", os.path.join(tmp, "train_results")]
+
+
+def trained_fold(tmp):
+    """The train phase's flags and results dir; when that phase did not run
+    (phases named alone), one epoch of the same fold is trained first."""
+    from cova_tpu_torch import cli
+    from cova_tpu_torch.config import Config
+
+    flags = train_flags(tmp)
+    res = os.path.join(tmp, "train_results", Config(img_height=IMG)
+                       .params_key)
+    if not os.path.isfile(os.path.join(res, "Fold-1 saved_model.pt",
+                                       "best.pt")):
+        need(cli.main(["train", *flags, "-e", "1"]) == 0, "train failed")
+    return flags, res
+
+
 def phase_train(torch, dev, tmp):
     import numpy as np
 
@@ -1081,8 +1129,7 @@ def phase_train(torch, dev, tmp):
     from cova_tpu_torch.train.steps import create_train_state, train_step
 
     out = os.path.join(tmp, "train_results")
-    common = ["--synthetic", str(TRAIN_PAGES), "--img_height", str(IMG),
-              "--output_dir", out]
+    common = train_flags(tmp)
     zero_counts()
     t0 = time.perf_counter()
     rc = cli.main(["train", *common, "-e", "2"])
@@ -1171,6 +1218,220 @@ def phase_train(torch, dev, tmp):
         grad_rtol=GRAD_RTOL, grad_atol=GRAD_ATOL, plain_step_s=plain_s,
         prefetcher=prefetch,
     )
+
+
+def run_bench_cli(torch, flags):
+    """``cli bench`` with ``flags``: its one JSON line, parsed, and the
+    launches of each kernel counted from 0 over the run."""
+    import io
+
+    from cova_tpu_torch import cli
+
+    zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", "--img_height", str(IMG), *flags])
+    torch.cuda.synchronize()
+    need(rc == 0, f"bench {flags} returned {rc}")
+    lines = [x for x in buf.getvalue().splitlines() if x.strip()]
+    need(len(lines) == 1, f"bench {flags} printed {lines}")
+    return json.loads(lines[0]), launch_counts()
+
+
+def phase_bench(torch, dev):
+    """The three benches through ``cli bench`` at full width, with the
+    kernels each must launch; then the infer bench's batch served with the
+    kernels against the plain ops, and one train-bench step's gradients
+    against the plain pairs'."""
+    import numpy as np
+
+    from cova_tpu_torch import benchmarks
+    from cova_tpu_torch.models.cova import build_model
+    from cova_tpu_torch.train.steps import forward_step
+
+    fwd = ("roi_pool_fwd", "bn_relu_pool_fwd")
+    bwd = ("roi_pool_bwd", "bn_relu_pool_bwd")
+    runs = {}
+    for mode, flags, launched in (
+        ("train", [], fwd + bwd),
+        ("infer", ["-bsb", str(BENCH_INFER_B)], fwd),
+        ("e2e", ["--e2e_source", "mem", "--e2e_pages", str(E2E_PAGES),
+                 "--e2e_epochs", str(E2E_EPOCHS)], fwd + bwd),
+    ):
+        result, launches = run_bench_cli(torch, ["--mode", mode, *flags])
+        need(all(launches[k] > 0 for k in launched),
+             f"bench {mode}: a kernel of its path did not launch: "
+             f"{launches}")
+        need(not any(n for k, n in launches.items() if k not in launched),
+             f"bench {mode}: a kernel off its path launched: {launches}")
+        need(result["value"] > 0 and result["device"] ==
+             torch.cuda.get_device_name(0), f"bench {mode}: {result}")
+        runs[mode] = dict(result=result, launches=launches)
+    need(runs["train"]["result"]["batch_size"] == BENCH_TRAIN_B,
+         f"train bench at B={runs['train']['result']['batch_size']}")
+
+    # The infer bench's batch (B = 32, P bucketed to 128) served with the
+    # kernels and with the plain ops, from one set of weights.
+    cfg = benchmarks.bench_config(BENCH_INFER_B, IMG, "bfloat16", False)
+    batch = benchmarks.bench_batch(cfg, benchmarks.INFER_SEED)
+    need(batch.boxes.shape[:2] == (BENCH_INFER_B, 128),
+         f"infer bench batch {batch.boxes.shape}")
+    model = build_model(cfg, device=dev)
+    logits = forward_step(model, batch).logits
+    with plain_ops():
+        plain = forward_step(model, batch).logits
+    infer_vs_plain = compare_logits(torch, dev, batch, logits, plain,
+                                    CONV_LOGIT_STEPS, "infer bench batch")
+    del model, logits, plain
+
+    # One train-bench step (B = 8, P 128): its gradients against the plain
+    # pairs' from the same weights, at the train phase's tolerance.
+    cfg = benchmarks.bench_config(BENCH_TRAIN_B, IMG, "bfloat16", False)
+    batch = benchmarks.bench_batch(cfg, benchmarks.TRAIN_SEED)
+    need(batch.boxes.shape[:2] == (BENCH_TRAIN_B, 128),
+         f"train bench batch {batch.boxes.shape}")
+    model = build_model(cfg, device=dev)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    loss_k, grads_k = step_grads(torch, model, sd, batch, SEED)
+    with plain_ops():
+        loss_p, grads_p = step_grads(torch, model, sd, batch, SEED)
+    loss_diff = abs(loss_k - loss_p)
+    need(np.isfinite(loss_k) and loss_diff <= 1e-5 * abs(loss_p),
+         f"train bench step: kernel and plain losses {loss_k} vs {loss_p}")
+    grads_vs_plain = grad_diff(grads_k, grads_p)
+    need(grads_vs_plain["share_of_tolerance"] <= 1.0,
+         f"train bench step: gradients beyond the tolerance: "
+         f"{grads_vs_plain}")
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return dict(
+        runs=runs, e2e_cut=dict(pages=E2E_PAGES, epochs=E2E_EPOCHS,
+                                defaults=dict(pages=64, epochs=3)),
+        infer_batch_vs_plain=dict(batch=BENCH_INFER_B, P=128,
+                                  **infer_vs_plain),
+        train_step_vs_plain=dict(
+            batch=BENCH_TRAIN_B, P=128, loss_kernel=loss_k,
+            loss_plain=loss_p, loss_abs_diff=loss_diff,
+            grad_rtol=GRAD_RTOL, grad_atol=GRAD_ATOL, **grads_vs_plain),
+    )
+
+
+def read_csv_rows(path):
+    with open(path) as f:
+        return [line.rstrip("\n").split(",") for line in f]
+
+
+def phase_export(torch, dev, tmp):
+    """``cli export`` of the trained fold: the ``.pth`` strict-loads into a
+    fresh model, holds the checkpoint's tensors (floats in f32), and
+    ``predict --torch_model`` on it picks what ``predict`` from the
+    checkpoint picks."""
+    from cova_tpu_torch import cli
+    from cova_tpu_torch.config import Config
+    from cova_tpu_torch.models.cova import build_model
+    from cova_tpu_torch.utils.checkpoint import load_checkpoint
+
+    flags, res = trained_fold(tmp)
+    rc = cli.main(["export", *flags])
+    pth = os.path.join(res, "Fold-1 saved_model.pth")
+    need(rc == 0 and os.path.isfile(pth), f"export returned {rc}")
+    sd = torch.load(pth, map_location="cpu", weights_only=True)
+    build_model(Config(img_height=IMG), device="cpu").load_state_dict(
+        sd, strict=True)
+    best = load_checkpoint(os.path.join(res, "Fold-1 saved_model.pt",
+                                        "best.pt"))["model"]
+    need(set(sd) == set(best), "export changed the key set")
+    for k, v in sd.items():
+        need(v.dtype == (torch.float32 if v.is_floating_point()
+                         else torch.int64), f"{k} exported as {v.dtype}")
+        need(torch.equal(v, best[k].to(v.dtype)), f"{k} differs")
+    preds = {}
+    for name, extra in (("checkpoint", []), ("exported", ["--torch_model",
+                                                         pth])):
+        out = os.path.join(tmp, f"export_preds_{name}")
+        rc = cli.main(["predict", *flags, *extra, "--out_dir", out])
+        need(rc == 0, f"predict from the {name} weights returned {rc}")
+        preds[name] = read_csv_rows(os.path.join(out, "retrieval.csv"))
+    a, b = preds["checkpoint"], preds["exported"]
+    need(len(a) == len(b) > 1, f"retrieval.csv rows {len(a)} vs {len(b)}")
+    need([r[:7] for r in a] == [r[:7] for r in b],
+         "predict --torch_model on the export picks other boxes")
+    score_diff = max(abs(float(x[7]) - float(y[7]))
+                     for x, y in zip(a[1:], b[1:]))
+    return dict(tensors=len(sd), picks=len(a) - 1,
+                max_score_abs_diff=score_diff)
+
+
+def phase_visualize(torch, dev, tmp):
+    """``cli visualize --no_render`` on the trained fold: one attention CSV
+    per test page, finite, through the forward kernels."""
+    import numpy as np
+
+    from cova_tpu_torch import cli
+
+    flags, res = trained_fold(tmp)
+    zero_counts()
+    rc = cli.main(["visualize", *flags, "--no_render"])
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in launch_counts().items()
+                if k in ("roi_pool_fwd", "bn_relu_pool_fwd")}
+    need(rc == 0, f"visualize returned {rc}")
+    need(all(n > 0 for n in launches.values()),
+         f"a kernel was not launched on the visualize path: {launches}")
+    out = os.path.join(res, "Fold-1 attention visualization")
+    csvs = sorted(f for f in os.listdir(out) if f.endswith(".csv"))
+    n_test = TRAIN_PAGES - int(TRAIN_PAGES * 0.8)
+    need(len(csvs) == n_test, f"{len(csvs)} attention CSVs for {n_test} "
+                              "test pages")
+    for f in csvs:
+        rows = np.loadtxt(os.path.join(out, f), delimiter=",", ndmin=2)
+        need(rows.shape == (3, 5 + 10 * CTX) and np.isfinite(rows).all(),
+             f"{f}: rows {rows.shape}")
+        attn = rows[:, -2 * CTX:]
+        # A softmax over the context slots, each written as %.3f.
+        need(bool((attn >= 0).all()) and float(attn.sum(1).max())
+             <= 1.0 + 2 * CTX * 5e-4 + 1e-6,
+             f"{f}: attention weights {attn.sum(1)}")
+    return dict(launches=launches, csvs=len(csvs))
+
+
+def phase_sweep(torch, dev, tmp):
+    """``cli sweep --folds 1 2 --synthetic_hard`` at full width, one epoch
+    a fold: both folds train through the kernels, and the summary and
+    oracle band are written."""
+    import numpy as np
+
+    from cova_tpu_torch import cli
+    from cova_tpu_torch.config import Config
+
+    out = os.path.join(tmp, "sweep_results")
+    zero_counts()
+    rc = cli.main(["sweep", "--synthetic", str(SWEEP_PAGES), "--img_height",
+                   str(IMG), "-e", "1", "--synthetic_hard",
+                   "--output_dir", out, "--folds", "1", "2"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    need(rc == 0, f"sweep returned {rc}")
+    need(all(launches[k] > 0 for k in ("roi_pool_fwd", "bn_relu_pool_fwd",
+                                       "roi_pool_bwd", "bn_relu_pool_bwd")),
+         f"a kernel was not launched on the sweep path: {launches}")
+    res = os.path.join(out, Config(img_height=IMG).params_key)
+    losses = {}
+    for fold in (1, 2):
+        with open(os.path.join(res, f"Fold-{fold} logs.txt")) as f:
+            losses[fold] = [float(line.split("Loss:")[1].split()[0])
+                            for line in f if line.startswith("Epoch:")]
+        need(len(losses[fold]) == 1 and np.isfinite(losses[fold]).all(),
+             f"fold {fold} epoch losses {losses[fold]}")
+    oracle = np.loadtxt(os.path.join(res, "oracle_acc.csv"), delimiter=",",
+                        skiprows=1, ndmin=2)
+    need(oracle[:, 0].tolist() == [1, 2], f"oracle_acc.csv {oracle}")
+    with open(os.path.join(res, "sweep_summary.txt")) as f:
+        summary = f.read()
+    need(summary.startswith("folds: [1, 2]") and "oracle visible:"
+         in summary, f"sweep_summary.txt: {summary!r}")
+    return dict(launches=launches, epoch_losses=losses,
+                oracle_acc=oracle.tolist(), summary=summary)
 
 
 def check_prefetcher(torch, dev, cfg):
@@ -1631,42 +1892,83 @@ def main() -> int:
 
     # Phase names as arguments run those phases alone (for work on one of
     # them); the summary and the ok line come only from a whole run.
-    phases = ("kernels", "conv_kernels", "serve", "train", "conv",
-              "backbones")
+    phases = ("kernels", "conv_kernels", "serve", "train", "bench",
+              "export", "visualize", "sweep", "conv", "backbones")
     only = sys.argv[1:]
     need(all(p in phases for p in only), f"phases are {phases}")
+
+    def wanted(name):
+        return not only or name in only
+
     kernels, launches = {}, {}
-    if not only or "kernels" in only:
+    tp = time.perf_counter()
+
+    def seconds():
+        """Seconds since the last call: each phase line's own time."""
+        nonlocal tp
+        t, tp = tp, time.perf_counter()
+        return tp - t
+
+    if wanted("kernels"):
         k_results, k_checks = phase_kernels(torch, dev)
         kernels.update(k_results)
-        emit({"phase": "kernels", "names": sorted(k_results),
-              "results": k_results, "checks": k_checks})
-    if not only or "conv_kernels" in only:
+        emit({"phase": "kernels", "seconds": seconds(),
+              "names": sorted(k_results), "results": k_results,
+              "checks": k_checks})
+    if wanted("conv_kernels"):
         conv_results, conv_checks = phase_conv_kernels(torch, dev)
         kernels.update(conv_results)
-        emit({"phase": "conv_kernels", "results": conv_results,
+        emit({"phase": "conv_kernels", "seconds": seconds(),
+              "results": conv_results,
               "checks": conv_checks, "tolerance": CONV_TOL,
               "peaks": {"hbm_bytes_per_s": HBM_BYTES_PER_S,
                         "bf16_ops_per_s": BF16_OPS_PER_S,
                         "f32_ops_per_s": F32_OPS_PER_S,
                         "tf32_ops_per_s": TF32_OPS_PER_S,
                         "source": "NVIDIA H100 SXM data sheet, dense"}})
-    if not only or "serve" in only:
+    if wanted("serve"):
+        seconds()
         with tempfile.TemporaryDirectory() as tmp:
             serve_launches, serve = phase_serve(torch, dev, tmp)
-        emit({"phase": "serve", "launches": serve_launches, **serve})
-    if not only or "train" in only:
+        emit({"phase": "serve", "seconds": seconds(),
+              "launches": serve_launches, **serve})
+    # train, export and visualize share the trained fold.
+    with tempfile.TemporaryDirectory() as fold_tmp:
+        if wanted("train"):
+            seconds()
+            train_launches, train = phase_train(torch, dev, fold_tmp)
+            launches.update(train_launches)
+            emit({"phase": "train", "seconds": seconds(),
+                  "launches": train_launches, **train})
+        if wanted("bench"):
+            seconds()
+            emit({"phase": "bench", **phase_bench(torch, dev),
+                  "seconds": seconds()})
+        if wanted("export"):
+            seconds()
+            emit({"phase": "export", **phase_export(torch, dev, fold_tmp),
+                  "seconds": seconds()})
+        if wanted("visualize"):
+            seconds()
+            emit({"phase": "visualize",
+                  **phase_visualize(torch, dev, fold_tmp),
+                  "seconds": seconds()})
+    if wanted("sweep"):
+        seconds()
         with tempfile.TemporaryDirectory() as tmp:
-            train_launches, train = phase_train(torch, dev, tmp)
-        launches.update(train_launches)
-        emit({"phase": "train", "launches": train_launches, **train})
-    if not only or "conv" in only:
+            emit({"phase": "sweep", **phase_sweep(torch, dev, tmp),
+                  "seconds": seconds()})
+    if wanted("conv"):
+        seconds()
         with tempfile.TemporaryDirectory() as tmp:
             conv_launches, conv = phase_conv(torch, dev, tmp)
         launches.update(conv_launches)
-        emit({"phase": "conv", "launches": conv_launches, **conv})
-    if not only or "backbones" in only:
-        emit({"phase": "backbones", **phase_backbones(torch, dev)})
+        emit({"phase": "conv", "seconds": seconds(),
+              "launches": conv_launches, **conv})
+    if wanted("backbones"):
+        seconds()
+        emit({"phase": "backbones", **phase_backbones(torch, dev),
+              "seconds": seconds()})
     if only:
         emit({"phases_run": only, "seconds": time.perf_counter() - t0})
         return 0

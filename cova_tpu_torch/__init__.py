@@ -9,7 +9,8 @@ has a plain PyTorch version beside it, which is what
 runs for tensors on the CPU.
 
     from cova_tpu_torch import Config, build_model
-    from cova_tpu_torch.cli import main   # main(["train" | "eval" | "predict", ...])
+    from cova_tpu_torch.cli import main   # main(["train", ...]), as `cova`'s
+    from cova_tpu_torch.benchmarks import run_train_bench, run_infer_bench
 """
 
 from .config import CLASS_NAMES, N_CLASSES, SEED, Config

@@ -1,22 +1,30 @@
-"""Command-line interface of the port: ``train``, ``eval`` and ``predict``.
+"""Command-line interface of the port: ``train``, ``eval``, ``predict``,
+``visualize``, ``sweep``, ``export`` and ``bench``.
 
 Counterpart of ``cova_tpu/cli.py`` with the same common flags, the same
 subcommands' artifacts and locations, plus ``--device``. ``--backbone``
 takes the whole registry of ``models.resnet.make_backbone``; ``train
 --init_checkpoint`` initialises the backbone from a torchvision state_dict
-and ``--decode_cache`` keeps decoded screenshots on disk. ``export``,
-``visualize``, ``sweep`` and ``bench`` come with later slices.
+and ``--decode_cache`` keeps decoded screenshots on disk.
 
     python -m cova_tpu_torch.cli train --synthetic 50 -e 5
     python -m cova_tpu_torch.cli eval --synthetic 50
     python -m cova_tpu_torch.cli predict --synthetic 50 --out_dir preds/
+    python -m cova_tpu_torch.cli visualize --synthetic 50 --no_render
+    python -m cova_tpu_torch.cli sweep --synthetic 50 --folds 1 2
+    python -m cova_tpu_torch.cli export --synthetic 50
+    python -m cova_tpu_torch.cli bench --mode infer -bsb 32
 
 The model runs on ``cuda`` unless ``--device cpu`` is given; without a GPU
-the default refuses to run instead of carrying on on the CPU. ``eval`` and
-``predict`` take the fold's best checkpoint (``Fold-<k> saved_model.pt/
-best.pt`` under the results directory) unless ``--torch_model`` names a
-reference-format ``state_dict``; ``predict`` also finds the fold's exported
-``Fold-<k> saved_model.pth``.
+the default refuses to run instead of carrying on on the CPU. ``eval``,
+``predict`` and ``visualize`` take the fold's best checkpoint (``Fold-<k>
+saved_model.pt/best.pt`` under the results directory) unless
+``--torch_model`` names a reference-format ``state_dict``; they also find
+the fold's exported ``Fold-<k> saved_model.pth``, which ``export`` writes.
+``train --synthetic_hard`` appends the generator's Bayes-oracle band to
+``oracle_acc.csv``; ``sweep`` trains each fold in this process and
+aggregates ``fold_wise_acc.csv`` into ``sweep_summary.txt``. ``bench``
+prints one JSON line (``benchmarks.py``).
 """
 
 from __future__ import annotations
@@ -137,13 +145,10 @@ def _set_numerics(cfg: Config) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _refuse_unported(cfg: Config, args, command: str) -> None:
+def _refuse_unported(cfg: Config, command: str) -> None:
     if cfg.num_devices != 1 or cfg.model_parallel != 1:
         raise SystemExit(f"cova_tpu_torch {command} runs on one device "
                          "(multi-GPU is not ported yet)")
-    if args.synthetic_hard and command == "train":
-        raise SystemExit("train --synthetic_hard (with its oracle row) is "
-                         "not ported to cova_tpu_torch yet")
 
 
 def _load_datasets(cfg: Config, args):
@@ -270,7 +275,7 @@ def cmd_train(args) -> int:
 
     cfg = _cfg_from_args(args)
     device = resolve_device(args.device)
-    _refuse_unported(cfg, args, "train")
+    _refuse_unported(cfg, "train")
     if args.init_checkpoint and not os.path.isfile(args.init_checkpoint):
         raise SystemExit(f"--init_checkpoint {args.init_checkpoint}: no "
                          "such file")
@@ -310,7 +315,41 @@ def cmd_train(args) -> int:
         os.path.join(cfg.results_dir, "fold_wise_acc.csv"),
         cfg.cv_fold, val_acc, class_acc, macro_acc,
     )
+    if args.synthetic and args.synthetic_hard:
+        _append_oracle_row(cfg, test_ds, log_file)
     return 0
+
+
+def _append_oracle_row(cfg: Config, test_ds, log_file: str) -> None:
+    """Score the fold's test split with the hard generator's own Bayes rule
+    and record the ceiling band beside the model's scores: 'latent' reads
+    the assigned box colours (what any model could reach with perfect
+    observation), 'visible' re-estimates them from the rendered pixels (a
+    pixels-only rule, which folds occlusion in). The oracle reads only the
+    data."""
+    from .data.synthetic import oracle_retrieval_correct
+    from .utils.logging import print_and_log
+
+    lat = oracle_retrieval_correct(test_ds).mean(axis=0) * 100
+    vis = oracle_retrieval_correct(test_ds, visible=True).mean(axis=0) * 100
+    for name, acc in (("latent", lat), ("visible", vis)):
+        print_and_log(
+            "[ORACLE %s] Price: %.2f%% Title: %.2f%% Image: %.2f%%"
+            % (name, acc[0], acc[1], acc[2]),
+            log_file,
+        )
+    path = os.path.join(cfg.results_dir, "oracle_acc.csv")
+    new = not os.path.isfile(path)
+    with open(path, "a") as f:
+        if new:
+            f.write(
+                "fold,price_latent,title_latent,image_latent,"
+                "price_visible,title_visible,image_visible\n"
+            )
+        f.write(
+            "%d,%.2f,%.2f,%.2f,%.2f,%.2f,%.2f\n"
+            % (cfg.cv_fold, *lat, *vis)
+        )
 
 
 def cmd_eval(args) -> int:
@@ -322,7 +361,7 @@ def cmd_eval(args) -> int:
 
     cfg = _cfg_from_args(args)
     device = resolve_device(args.device)
-    _refuse_unported(cfg, args, "eval")
+    _refuse_unported(cfg, "eval")
     _set_numerics(cfg)
     _, _, test_ds, webpage_info, test_domains = _load_datasets(cfg, args)
     if test_ds.n_additional_feat:
@@ -350,7 +389,7 @@ def cmd_predict(args) -> int:
 
     cfg = _cfg_from_args(args)
     device = resolve_device(args.device)
-    _refuse_unported(cfg, args, "predict")
+    _refuse_unported(cfg, "predict")
     if args.page_ids and args.synthetic:
         raise SystemExit("--page_ids requires on-disk data, not "
                          "--synthetic (synthetic predicts its test split)")
@@ -387,6 +426,224 @@ def cmd_predict(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    """Write the fold's best checkpoint as a reference-format
+    ``state_dict`` (f32 floats) to ``<results_dir>/Fold-<k>
+    saved_model.pth``, where the reference's ``evaluate.py`` and
+    visualization script look for it. The port's modules use the
+    reference's namespace, so the keys carry over as they are; each BN's
+    ``num_batches_tracked`` holds the steps it counted (the JAX package
+    writes 0; the reference never reads it)."""
+    import torch
+
+    from .models.cova import build_model
+    from .utils.checkpoint import CheckpointManager, load_checkpoint
+
+    cfg = _cfg_from_args(args)
+    resolve_device(args.device)  # checked as everywhere; export runs on host
+    _refuse_unported(cfg, "export")
+    if cfg.use_additional_feat and cfg.n_additional_feat == 0:
+        # Discovered from the data elsewhere; export has no dataset in
+        # hand, so the flag gives it (synthetic and the reference's
+        # CoVA++ data both carry 4).
+        cfg = cfg.replace(n_additional_feat=args.n_feat)
+    if cfg.backbone != "resnet18_stem":
+        raise SystemExit(
+            "export targets the reference architecture (models.py:48-56), "
+            f"which uses the truncated resnet18 stem; got --backbone "
+            f"{cfg.backbone}"
+        )
+    best = CheckpointManager(cfg.ckpt_dir()).path("best")
+    if not os.path.isfile(best):
+        raise SystemExit(
+            "Model does not seem to have been trained (run `train`) with "
+            "the hyperparameters you provided"
+        )
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(load_checkpoint(best)["model"], strict=True)
+    sd = {k: (v.float() if v.is_floating_point() else v).contiguous()
+          for k, v in model.state_dict().items()}
+    out = args.out or cfg.torch_model_path()
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    torch.save(sd, out)
+    print(f"Exported reference-format checkpoint ({len(sd)} tensors) "
+          f"to {out}")
+    return 0
+
+
+def cmd_visualize(args) -> int:
+    """Attention CSVs (and, unless ``--no_render``, overlay PNGs) for the
+    fold's test pages, into ``<results_dir>/Fold-<k> attention
+    visualization`` (see ``train/extract.py``)."""
+    from .data.pipeline import make_eval_pipeline
+    from .train.extract import extract_attention
+
+    cfg = _cfg_from_args(args)
+    if cfg.context_size <= 0:
+        raise SystemExit(
+            "Attention Scores can only be computed if CONTEXT_SIZE > 0")
+    device = resolve_device(args.device)
+    _refuse_unported(cfg, "visualize")
+    _set_numerics(cfg)
+    _, _, test_ds, _, _ = _load_datasets(cfg, args)
+    if test_ds.n_additional_feat:
+        cfg = cfg.replace(n_additional_feat=test_ds.n_additional_feat)
+    model = load_model(cfg, device, args.torch_model)
+    out_dir = os.path.join(
+        cfg.results_dir, f"Fold-{cfg.cv_fold} attention visualization"
+    )
+    data_dir = cfg.data_dir
+    tmp_imgs = None
+    if args.synthetic:
+        if args.no_render:
+            data_dir = None
+        else:
+            # The overlays read imgs/<id>.png, as the reference's layout;
+            # synthetic pages live in memory, so the pages to extract are
+            # written out first (the eval pipeline keeps dataset order).
+            import tempfile
+
+            from PIL import Image
+
+            tmp_imgs = tempfile.TemporaryDirectory()
+            img_dir = os.path.join(tmp_imgs.name, "imgs")
+            os.makedirs(img_dir)
+            n = args.max_pages or len(test_ds.ids)
+            for idx, pid in enumerate(test_ds.ids[:n]):
+                Image.fromarray(test_ds.image(idx)).save(
+                    os.path.join(img_dir, f"{pid}.png")
+                )
+            data_dir = tmp_imgs.name
+    try:
+        extract_attention(
+            model, make_eval_pipeline(cfg, test_ds), data_dir, out_dir,
+            visualize=not args.no_render and data_dir is not None,
+            max_pages=args.max_pages,
+        )
+    finally:
+        if tmp_imgs is not None:
+            tmp_imgs.cleanup()
+    return 0
+
+
+def sweep_summary(fold_wise_acc_file: str, folds) -> Optional[str]:
+    """Aggregate ``fold_wise_acc.csv`` into the published table's format:
+    per class, mean ± std over folds. A re-run fold leaves stale rows; the
+    last row per fold wins. With an ``oracle_acc.csv`` beside it, the
+    oracle band is aggregated the same way. Returns the summary text, or
+    None if no requested fold has a row yet."""
+    import numpy as np
+
+    rows = np.loadtxt(
+        fold_wise_acc_file, delimiter=",", skiprows=1, ndmin=2
+    )
+    by_fold = {}
+    for r in rows:
+        by_fold[int(r[0])] = r  # later rows overwrite earlier ones
+    got = [by_fold[f] for f in folds if f in by_fold]
+    if not got:
+        return None
+    acc = np.stack(got)  # columns: fold,val,P,Pm,T,Tm,I,Im
+    lines = [f"folds: {[f for f in folds if f in by_fold]}"]
+    for label, cols in (("classwise", (2, 4, 6)), ("macro", (3, 5, 7))):
+        parts = [
+            "%s %.1f ± %.1f" % (name, acc[:, c].mean(), acc[:, c].std())
+            for name, c in zip(("Price", "Title", "Image"), cols)
+        ]
+        lines.append(f"{label}: " + " | ".join(parts))
+    oracle_path = os.path.join(
+        os.path.dirname(fold_wise_acc_file), "oracle_acc.csv"
+    )
+    if os.path.isfile(oracle_path):
+        orows = np.loadtxt(
+            oracle_path, delimiter=",", skiprows=1, ndmin=2
+        )
+        o_by_fold = {int(r[0]): r for r in orows}
+        o_got = [o_by_fold[f] for f in folds if f in o_by_fold]
+        if o_got:
+            oacc = np.stack(o_got)
+            for label, cols in (
+                ("oracle latent", (1, 2, 3)),
+                ("oracle visible", (4, 5, 6)),
+            ):
+                parts = [
+                    "%s %.1f ± %.1f"
+                    % (name, oacc[:, c].mean(), oacc[:, c].std())
+                    for name, c in zip(("Price", "Title", "Image"), cols)
+                ]
+                lines.append(f"{label}: " + " | ".join(parts))
+    return "\n".join(lines) + "\n"
+
+
+def cmd_sweep(args) -> int:
+    """Cross-validation sweep: train each of ``--folds`` in this process,
+    one ``cmd_train`` call per fold (nothing re-executes the process, so a
+    fold cannot restart the sweep), then aggregate into the published
+    mean ± std table, ``sweep_summary.txt``."""
+    rc = 0
+    for fold in args.folds:
+        fold_args = argparse.Namespace(**vars(args))
+        fold_args.cv_fold = fold
+        print(f"\n===== Fold {fold} =====")
+        rc |= cmd_train(fold_args)
+    cfg = _cfg_from_args(args)
+    path = os.path.join(cfg.results_dir, "fold_wise_acc.csv")
+    if rc == 0 and os.path.isfile(path):
+        summary = sweep_summary(path, args.folds)
+        if summary:
+            print("\n===== Sweep summary (mean ± std over folds) =====")
+            print(summary, end="")
+            with open(
+                os.path.join(cfg.results_dir, "sweep_summary.txt"), "w"
+            ) as f:
+                f.write(summary)
+    return rc
+
+
+def cmd_bench(args) -> int:
+    """One benchmark (``benchmarks.py``), printed as one JSON line."""
+    from . import benchmarks
+
+    cfg = _cfg_from_args(args)
+    device = resolve_device(args.device)
+    _refuse_unported(cfg, "bench")
+    _set_numerics(cfg)
+    # -bs and --batch_size_bench are one knob here: bench's parser
+    # defaults batch_size to None so that an explicit -bs is seen; -bsb
+    # wins when both are given.
+    bs = args.batch_size_bench
+    if bs is None:
+        bs = args.batch_size if args.batch_size is not None else 8
+    if args.mode == "e2e":
+        result = benchmarks.run_e2e_bench(
+            batch_size=bs,
+            n_pages=args.e2e_pages,
+            epochs=args.e2e_epochs,
+            img_height=args.img_height,
+            compute_dtype=args.compute_dtype,
+            source=args.e2e_source,
+            use_additional_feat=args.additional_feat,
+            # None (not given) -> the bench's own min(8, cpus).
+            num_threads=args.num_workers or 0,
+            device=device,
+        )
+    else:
+        fn = (benchmarks.run_infer_bench if args.mode == "infer"
+              else benchmarks.run_train_bench)
+        result = fn(
+            batch_size=bs,
+            steps=args.steps,
+            img_height=args.img_height,
+            compute_dtype=args.compute_dtype,
+            use_additional_feat=args.additional_feat,
+            backbone=args.backbone,
+            context_size=args.context_size,
+            device=device,
+        )
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv: Optional[list] = None) -> int:
     parser = argparse.ArgumentParser(
         "cova_tpu_torch",
@@ -394,11 +651,12 @@ def main(argv: Optional[list] = None) -> int:
     )
     sub = parser.add_subparsers(dest="command", required=True)
     for name, fn in (("train", cmd_train), ("eval", cmd_eval),
-                     ("predict", cmd_predict)):
+                     ("predict", cmd_predict), ("visualize", cmd_visualize),
+                     ("sweep", cmd_sweep), ("export", cmd_export)):
         p = sub.add_parser(name)
         _add_common_flags(p)
         p.set_defaults(fn=fn)
-    for name in ("eval", "predict"):
+    for name in ("eval", "predict", "visualize"):
         sub.choices[name].add_argument(
             "--torch_model", default=None, metavar="PATH.pth",
             help="reference-format state_dict to serve (default: the "
@@ -419,6 +677,51 @@ def main(argv: Optional[list] = None) -> int:
         "--render", action="store_true",
         help="also render <page_id>_pred.png overlays of the retrieval "
              "picks (requires on-disk screenshots)")
+    p = sub.choices["export"]
+    p.add_argument(
+        "--out", default=None, metavar="PATH.pth",
+        help="output file (default: '<results_dir>/Fold-<k> "
+             "saved_model.pth', where the reference's evaluate.py looks)")
+    p.add_argument(
+        "--n_feat", type=int, default=4,
+        help="additional-feature count with --use_additional_feat (export "
+             "has no dataset to discover it from)")
+    p = sub.choices["visualize"]
+    p.add_argument("--no_render", action="store_true")
+    p.add_argument("--max_pages", type=int, default=None)
+    sub.choices["sweep"].add_argument(
+        "--folds", type=int, nargs="+",
+        default=list(range(1, N_FOLDS + 1)),
+    )
+
+    b = sub.add_parser("bench")
+    _add_common_flags(b)
+    # None sentinels: an explicit -bs / -nw is seen (and honored) by
+    # cmd_bench; unset falls back to the bench's own defaults (bs 8; e2e
+    # threads min(8, cpus)).
+    b.set_defaults(batch_size=None, num_workers=None)
+    b.add_argument("--steps", type=int, default=20,
+                   help="steps per timed window (train/infer modes; e2e "
+                        "is epoch-timed: use --e2e_pages/--e2e_epochs)")
+    b.add_argument("--batch_size_bench", "-bsb", type=int, default=None,
+                   help="bench batch size (alias: the common -bs flag; "
+                        "default 8)")
+    b.add_argument("--e2e_pages", type=int, default=64,
+                   help="e2e mode: synthetic pages per epoch")
+    b.add_argument("--e2e_epochs", type=int, default=3,
+                   help="e2e mode: timed epochs (after one warm epoch)")
+    b.add_argument("--mode", choices=["train", "infer", "e2e"],
+                   default="train",
+                   help="train = fwd+bwd+update (device-staged batch); "
+                        "infer = serving forward (use -bs 1 for single-"
+                        "page latency); e2e = batches fed from the host "
+                        "DataPipeline (sustained throughput)")
+    b.add_argument("--e2e_source", choices=["mem", "disk"], default="mem",
+                   help="e2e feed: mem = in-memory synthetic pages; disk = "
+                        "PNGs/CSVs through the native decode path with "
+                        "the decoded-screenshot cache (steady-state epochs "
+                        "are cache-warm)")
+    b.set_defaults(fn=cmd_bench)
     args = parser.parse_args(argv)
     return args.fn(args)
 

@@ -108,6 +108,11 @@ def bucket_batch(batch: Batch, buckets: Sequence[int]) -> Batch:
     )
     if target >= p_full:
         return batch
+    return slice_boxes(batch, target)
+
+
+def slice_boxes(batch: Batch, target: int) -> Batch:
+    """The first ``target`` box rows of every page."""
     return batch._replace(
         boxes=batch.boxes[:, :target],
         labels=batch.labels[:, :target],

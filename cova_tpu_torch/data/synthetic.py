@@ -1,12 +1,12 @@
 """Synthetic webpage generator for tests, smoke runs and benchmarks.
 
-Counterpart of ``cova_tpu/data/synthetic.py`` (the generator only; the
-hard-mode Bayes-oracle scorer stays with the JAX package's sweep). For the
-same seed it draws the same numbers in the same order, so pages are
-byte-identical to the JAX package's: 11..230 boxes per page in preorder,
-exactly one box each of Price/Title/Image, square screenshots. Pages can be
-materialized to disk in the reference layout (imgs/*.png + bboxes/*.csv) or
-kept in memory.
+Counterpart of ``cova_tpu/data/synthetic.py``: the generator and the
+hard-mode Bayes-oracle scorer that ``train --synthetic_hard`` and ``sweep``
+report beside the model. For the same seed it draws the same numbers in the
+same order, so pages are byte-identical to the JAX package's: 11..230 boxes
+per page in preorder, exactly one box each of Price/Title/Image, square
+screenshots. Pages can be materialized to disk in the reference layout
+(imgs/*.png + bboxes/*.csv) or kept in memory.
 """
 
 from __future__ import annotations
@@ -190,6 +190,211 @@ def synth_image(
     return (img - np.minimum(img, noise)).astype(np.uint8)
 
 
+# --------------------------------------------------------------------------
+# Bayes-oracle scorer for the hard-mode generator.
+#
+# The retrieval metric picks, per class c, the box with the highest class-c
+# score; with exactly one true box per class and (near-)independent boxes,
+# the Bayes rule is argmax over the likelihood ratio
+#     LR_c(i) = P(obs_i | i is the true c box) / P(obs_i | i is BG),
+# computed from the generator's own parameters (the priors above). The
+# observables are each box's geometry, its pre-noise fill colour, and (with
+# additional features) its feature column 0. The oracle reads the assigned
+# colours, so occlusion and the <=7/channel render noise do not lower it.
+#
+# Known approximations, all conservative or measure-small:
+#   * post-draw clamping (w,h >= 2 px, image-bounds clipping) is modelled
+#     only by the 0.5 px indicator tolerance;
+#   * the joint constraint "the 3 true boxes are distinct" is ignored
+#     (class regions barely overlap);
+#   * the BG geometry mixture uses the expected mimic fraction
+#     min(6, n-3)/(n-3) rather than the exact planted count.
+# --------------------------------------------------------------------------
+
+_SHIFT_LO, _SHIFT_HI = 55, 110  # _box_colors: rng.integers(55, 111)
+_AF_SIGMA = 0.6  # synth_record's feature 0: 1{true} + 0.6*N(0,1)
+
+
+def _geom_logpdf_class(cls: int, g, ih: float, widen: float) -> float:
+    """Log-density of geometry (x, y, w, h) under class ``cls``'s prior at
+    the given widening (1.0 = true-box draw, _HARD_WIDEN = mimic draw).
+    Image draws (x, y, h, aspect); the aspect->w change of variables adds
+    a 1/h Jacobian so Image densities are comparable across boxes."""
+    x, y, w, h = (float(v) for v in g)
+    rngs = _hard_prior_ranges(cls, ih, widen)
+    if cls == 3:
+        vals = (x, y, h, w / max(h, 1e-6))
+        tols = (0.5, 0.5, 0.5, 0.02)
+    else:
+        vals = (x, y, w, h)
+        tols = (0.5, 0.5, 0.5, 0.5)
+    lp = 0.0
+    for (lo, hi), v, t in zip(rngs, vals, tols):
+        if not (lo - t <= v <= hi + t):
+            return -np.inf
+        lp -= np.log(max(hi - lo, 1e-9))
+    if cls == 3:
+        lp -= np.log(max(h, 1e-6))
+    return lp
+
+
+def _geom_logpdf_bg(g, ih: float, n_boxes: int) -> float:
+    """Log-density of geometry under the BG mixture: planted mimics
+    (widened class priors, 1/3 each) with probability min(6, n-3)/(n-3),
+    else the plain random draw of synth_record (x,y ~ U(0, ih-4);
+    w|x ~ U(2, max(ih-x, 3)); h|y ~ U(2, max(ih-y, 3)))."""
+    x, y, w, h = (float(v) for v in g)
+    n_bg = max(n_boxes - 3, 1)
+    pi_mimic = min(6, n_bg) / n_bg
+    p_mimic = 0.0
+    for k in (1, 2, 3):
+        lp = _geom_logpdf_class(k, g, ih, _HARD_WIDEN)
+        if np.isfinite(lp):
+            p_mimic += np.exp(lp) / 3.0
+    p_rand = 0.0
+    if -0.5 <= x <= ih - 4 + 0.5 and -0.5 <= y <= ih - 4 + 0.5:
+        wmax, hmax = max(ih - x, 3.0), max(ih - y, 3.0)
+        if 1.5 <= w <= wmax + 0.5 and 1.5 <= h <= hmax + 0.5:
+            p_rand = (
+                1.0 / (ih - 4) ** 2
+                / max(wmax - 2.0, 1e-9)
+                / max(hmax - 2.0, 1e-9)
+            )
+    dens = pi_mimic * p_mimic + (1.0 - pi_mimic) * p_rand
+    # Clamped boxes can fall outside both supports; floor instead of -inf
+    # so the LLR never becomes +inf off a modelling gap.
+    return float(np.log(max(dens, 1e-300)))
+
+
+def _log_color_true(col, cls: int, tol: int = 0) -> float:
+    """Log-pmf of a fill colour under the true-box process: uniform integer
+    jitter +-_TRUE_JITTER per channel around the class palette. ``tol``
+    widens the support (visible-colour mode: the render noise subtracts up
+    to 7/channel, shifting medians off the nominal cube)."""
+    d = col.astype(np.int64) - _PALETTE[cls].astype(np.int64)
+    if np.all(np.abs(d) <= _TRUE_JITTER + tol):
+        return -3.0 * np.log(2 * _TRUE_JITTER + 1)
+    return -np.inf
+
+
+def _color_bg_pmf(col, mc: int, tol: int = 0) -> float:
+    """Pmf of a fill colour under the BG process given the box's widened-
+    region membership ``mc`` (_hard_mimic_class). Gray (never coloured)
+    carries the remaining mass but never competes: the true-colour pmf is
+    zero there."""
+    base_p = {1: 0.0, 2: 0.0, 3: 0.0}
+    if mc:
+        base_p[mc] += 0.9
+        for k in base_p:
+            base_p[k] += 0.1 * 0.05 / 3.0
+    else:
+        for k in base_p:
+            base_p[k] += 0.05 / 3.0
+    cube = float(2 * _TRUE_JITTER + 1) ** 3
+    shift = float(_SHIFT_HI - _SHIFT_LO + 1) ** 3
+    p = 0.0
+    c64 = col.astype(np.int64)
+    for k, pk in base_p.items():
+        if pk <= 0.0:
+            continue
+        base = _PALETTE[k].astype(np.int64)
+        d = c64 - base
+        if np.all(np.abs(d) <= _TRUE_JITTER + tol):
+            p += pk * _CONFUSABLE_P / cube
+        m = d * np.where(base >= 128, -1, 1)
+        if np.all((m >= _SHIFT_LO - tol) & (m <= _SHIFT_HI + tol)):
+            p += pk * (1.0 - _CONFUSABLE_P) / shift
+    return p
+
+
+def oracle_scores(
+    boxes_xywh: np.ndarray,
+    colors: np.ndarray,
+    img_h: int,
+    additional_feats: np.ndarray | None = None,
+    color_tol: int = 0,
+) -> np.ndarray:
+    """Per-box Bayes log-likelihood-ratio scores [n, 3] (classes 1..3)
+    for one hard-mode page (see the section comment above)."""
+    ih = float(img_h)
+    n = len(boxes_xywh)
+    use_af = additional_feats is not None and additional_feats.shape[1] > 0
+    scores = np.full((n, 3), -np.inf, dtype=np.float64)
+    for i in range(n):
+        g = boxes_xywh[i]
+        col = colors[i]
+        mc = _hard_mimic_class(g[0], g[1], g[2], g[3], ih)
+        lp_bg = _geom_logpdf_bg(g, ih, n) + np.log(
+            max(_color_bg_pmf(col, mc, tol=color_tol), 1e-300)
+        )
+        af_llr = 0.0
+        if use_af:
+            # f0 | true ~ N(1, sigma^2); f0 | BG ~ N(0, sigma^2):
+            # llr = (2 f0 - 1) / (2 sigma^2).
+            f0 = float(additional_feats[i, 0])
+            af_llr = (2.0 * f0 - 1.0) / (2.0 * _AF_SIGMA**2)
+        for c in (1, 2, 3):
+            lp_true = _geom_logpdf_class(c, g, ih, 1.0) + _log_color_true(
+                col, c, tol=color_tol
+            )
+            scores[i, c - 1] = lp_true + af_llr - lp_bg
+    return scores
+
+
+def colors_from_image(
+    img: np.ndarray, boxes_xywh: np.ndarray
+) -> np.ndarray:
+    """Each box's fill colour estimated from the rendered image: the
+    per-channel median over the box's interior pixels. Scoring these
+    instead of the assigned colours folds occlusion, the render noise and
+    integer rasterization into the ceiling."""
+    ih = img.shape[0]
+    n = len(boxes_xywh)
+    out = np.zeros((n, 3), dtype=np.uint8)
+    for i, (bx, by, bw, bh) in enumerate(boxes_xywh):
+        x1, y1 = int(bx), int(by)
+        x2, y2 = min(int(bx + bw), ih), min(int(by + bh), ih)
+        if x2 <= x1 or y2 <= y1:
+            continue
+        patch = img[y1:y2, x1:x2].reshape(-1, 3)
+        out[i] = np.median(patch, axis=0).astype(np.uint8)
+    return out
+
+
+def oracle_retrieval_correct(
+    ds: "InMemoryWebDataset", visible: bool = False
+) -> np.ndarray:
+    """Oracle retrieval correctness [n_pages, 3] bool over a hard-mode
+    in-memory dataset: per class, the oracle picks the argmax LLR, correct
+    iff that is the true class box (the retrieval metric at k=1).
+
+    ``visible=True`` scores colours re-estimated from the rendered image
+    (``colors_from_image``, tolerance 8/channel for the noise shift)
+    instead of the assigned ones: the ceiling of a rule that sees only
+    pixels."""
+    if not getattr(ds, "hard", False):
+        raise ValueError(
+            "oracle scorer models the HARD generator; easy mode is "
+            "saturating by design (colors identify classes exactly)"
+        )
+    out = np.zeros((len(ds.ids), 3), dtype=bool)
+    for i in range(len(ds.ids)):
+        if visible:
+            colors = colors_from_image(ds._images[i], ds.all_boxes[i])
+            tol = 8
+        else:
+            colors, tol = ds._colors[i], 0
+        s = oracle_scores(
+            ds.all_boxes[i], colors, ds.img_h, ds.all_additional[i],
+            color_tol=tol,
+        )
+        labels = ds.all_labels[i]
+        for c in (1, 2, 3):
+            true_idx = int(np.argmax(labels == c))
+            out[i, c - 1] = int(np.argmax(s[:, c - 1])) == true_idx
+    return out
+
+
 class InMemoryWebDataset(WebDataset):
     """WebDataset-compatible dataset backed by synthesized arrays."""
 
@@ -212,6 +417,8 @@ class InMemoryWebDataset(WebDataset):
         self.all_labels = []
         self.all_additional = []
         self._images: List[np.ndarray] = []
+        # Each box's pre-noise fill colour, for the oracle scorer.
+        self._colors: List[np.ndarray] = []
         for i in range(n_pages):
             rng = np.random.default_rng((seed, i))
             rec = synth_record(
@@ -222,6 +429,7 @@ class InMemoryWebDataset(WebDataset):
             self.all_labels.append(rec.labels)
             self.all_additional.append(rec.additional_feats)
             colors = _box_colors(rec, img_h, rng, hard=hard)
+            self._colors.append(colors)
             self._images.append(
                 synth_image(rec, img_h, rng, hard=hard, colors=colors)
             )
@@ -242,6 +450,7 @@ class InMemoryWebDataset(WebDataset):
         ds.all_labels = [self.all_labels[i] for i in idxs]
         ds.all_additional = [self.all_additional[i] for i in idxs]
         ds._images = [self._images[i] for i in idxs]
+        ds._colors = [self._colors[i] for i in idxs]
         ds.n_additional_feat = self.n_additional_feat
         return ds
 

@@ -6,6 +6,7 @@ PyTorch port goes.
     python3 scripts/profile_torch_serve.py --train  # one train step
     ... --train --prefetch   # batches through data.device_prefetch
     ... [--train] --conv     # with COVA_CUDA_CONV=1 (the hand-written conv)
+    ... [--train] --bench    # the batch of `cli bench` (infer / train mode)
 
 Builds the flagship model (resnet18_stem, 1280^2, P = 232, -cs 12, -hd 384,
 bf16). Serving: the seeded random weights of ``chip_smoke.py`` and one batch
@@ -15,6 +16,9 @@ of B = 10 synthetic pages, tracing ``forward_step`` (host copy included) over
 ``train_step`` (host copy, forward, backward and the Adam update) over 10
 steps; with ``--prefetch`` the step takes its batch from the device
 prefetcher, as the trainer does, instead of pinning and copying it itself.
+With ``--bench`` the batch is the bench's (``benchmarks.bench_batch``:
+B = 32 serving, B = 8 training, P bucketed to 128), staged on the device
+once as the bench stages it, and the weights are ``build_model``'s.
 Prints one JSON line: the card (``nvidia-smi`` name and power limit), the
 window's wall time per batch, the device's
 busy time (union of kernel and copy intervals), its idle share, device time
@@ -65,10 +69,12 @@ def main() -> int:
         return 1
     train = "--train" in sys.argv[1:]
     prefetch = "--prefetch" in sys.argv[1:]
+    bench = "--bench" in sys.argv[1:]
     if "--conv" in sys.argv[1:]:
         os.environ["COVA_CUDA_CONV"] = "1"
     sys.path.insert(0, ROOT)
     import chip_smoke
+    from cova_tpu_torch import benchmarks
     from cova_tpu_torch.config import Config
     from cova_tpu_torch.data.batching import pad_batch
     from cova_tpu_torch.data.pipeline import make_eval_pipeline
@@ -82,10 +88,18 @@ def main() -> int:
 
     dev = torch.device("cuda")
     cfg = Config(img_height=chip_smoke.IMG)
+    if bench:
+        b = chip_smoke.BENCH_TRAIN_B if train else chip_smoke.BENCH_INFER_B
+        cfg = benchmarks.bench_config(b, chip_smoke.IMG, "bfloat16", False)
+        seed = benchmarks.TRAIN_SEED if train else benchmarks.INFER_SEED
+        batch = benchmarks.bench_batch(cfg, seed)
+        if not prefetch:  # staged once, as the bench stages it
+            batch = benchmarks.stage_batch(batch, dev)
     if train:
-        b = chip_smoke.TRAIN_B
+        if not bench:
+            b = chip_smoke.TRAIN_B
+            batch = chip_smoke.fixed_train_batch(cfg)
         state = create_train_state(build_model(cfg, device=dev), cfg)
-        batch = chip_smoke.fixed_train_batch(cfg)
         gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
 
         if prefetch:
@@ -100,6 +114,8 @@ def main() -> int:
         else:
             def run():
                 train_step(state, batch, gen)
+    elif bench:
+        model = build_model(cfg, device=dev)
     else:
         b = chip_smoke.B
         model = build_model(cfg, device="cpu")
@@ -109,6 +125,7 @@ def main() -> int:
                                 max_boxes=cfg.max_boxes)
         _, batch = next(iter(make_eval_pipeline(cfg, ds).epoch(0)))
         batch, _ = pad_batch(batch, b)
+    if not train:
 
         def run():
             forward_step(model, batch)
@@ -169,9 +186,9 @@ def main() -> int:
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi[0] if smi else None,
         "mode": "train_step" if train else "serve",
-        "prefetch": prefetch,
+        "prefetch": prefetch, "bench_batch": bench,
         "cuda_conv": os.environ.get("COVA_CUDA_CONV") == "1",
-        "batch": b, "P": chip_smoke.P, "reps": reps,
+        "batch": b, "P": int(batch.boxes.shape[1]), "reps": reps,
         "wall_ms_per_batch": wall_ms / reps,
         "device_busy_ms_per_batch": busy_us / 1e3 / reps,
         "idle_share": 1.0 - busy_us / 1e3 / wall_ms,

@@ -110,7 +110,7 @@ def test_eval_and_predict_use_the_best_checkpoint(trained, tmp_path,
 
 
 @pytest.mark.parametrize("flags", [["--model_parallel", "2"],
-                                   ["--synthetic_hard"],
+                                   ["--synthetic_hard", "--num_devices", "2"],
                                    ["--num_devices", "2"],
                                    ["--num_devices", "0"]])
 def test_train_refuses_what_is_not_ported(tmp_path, flags):
