@@ -108,12 +108,29 @@ Phases, each printing one JSON line:
 12. sweep: ``cli sweep --folds 1 2 --synthetic_hard`` on 10 pages at full
    width, one epoch a fold: finite losses, both folds' rows of
    ``oracle_acc.csv`` and ``sweep_summary.txt``, through K1, K3, K5, K6.
+13. parallel: the port on two ranks, two processes on this card over gloo
+   launched through ``COVA_COORDINATOR_ADDRESS`` / ``COVA_NUM_PROCESSES``
+   / ``COVA_PROCESS_ID``, at full width: (a) ``cli train`` on 20 pages at
+   global -bs 10 (5 a rank), one epoch, then ``cli eval``; each rank's
+   launches of K1, K3, K5 and K6, counted from 0 over its run, must be
+   non-zero; rank 0 alone prints the epochs and writes the artifacts; a
+   one-process ``eval`` of the checkpoint gives the TEST rows of both
+   two-rank runs. (b) One step of a fixed global batch (B = 10, P = 232,
+   -dp 0, seeded weights) at dp = 2 and at dp = 1 x tp = 2
+   (``cova_tpu_torch.parallel.step_check``), in bf16 and f32 (TF32 off),
+   against the single-process step: the loss sums (rtol 1e-3 in bf16,
+   1e-5 in f32) and every gradient within the train phase's rule (dp = 2:
+   or within 1.5 times the distance of the single step with the batch's
+   halves swapped, see PAR_SPREAD_MARGIN); each run's ms per global step (host clock, mean of 5 after 2
+   warm-ups) beside the single-process step's, and the gradient
+   collectives' ms and bytes. (c) With two or more cards, (b) over NCCL,
+   one card a rank; otherwise ``"nccl": "one card: not run"``.
 
 The train phase also feeds batches through the device prefetcher and holds
 them against the host batches byte for byte. Every phase line carries its
 seconds.
 
-(Phases run in the order 1-3, 6, 4, 5, 9-12, 7, 8.) Then it prints the
+(Phases run in the order 1-3, 6, 4, 5, 9-13, 7, 8.) Then it prints the
 kernels' summary line (one row per TPU kernel, K1-K8), the ``nvidia-smi``
 line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without a GPU,
@@ -147,6 +164,15 @@ TRAIN_B, TRAIN_PAGES = 5, 40  # the flagship train batch; a 24/8/8 split
 BENCH_TRAIN_B, BENCH_INFER_B = 8, 32
 E2E_PAGES, E2E_EPOCHS = 16, 1
 SWEEP_PAGES = 10  # per fold a 6/2/2 split
+# The parallel phase: two ranks of the flagship's 5 pages (global -bs 10)
+# on 20 pages (a 12/4/4 split); steps timed as the mean of 5 after 2
+# warm-ups; every launch of ranks under a time limit.
+PAR_PAGES, PAR_B = 20, 10
+PAR_DEVICE = "cuda:0"  # both ranks on one card: gloo
+PAR_TIMING = {"warmup": 2, "reps": 5}
+PAR_TIMEOUT = 300
+TRAIN_KERNELS = ("roi_pool_fwd", "roi_pool_bwd", "bn_relu_pool_fwd",
+                 "bn_relu_pool_bwd")
 # Kernel-vs-plain train step: every parameter gradient within GRAD_RTOL of
 # its tensor's largest gradient, plus GRAD_ATOL of the model's largest
 # gradient. The two runs share the forward bit for bit; in the backward,
@@ -1434,6 +1460,273 @@ def phase_sweep(torch, dev, tmp):
                 oracle_acc=oracle.tolist(), summary=summary)
 
 
+def cli_rank(out: str, args) -> int:
+    """One rank of the parallel phase's CLI runs (``python3 chip_smoke.py
+    _cli_rank OUT ARGS...``, with the launch environment): every launch
+    count set to 0, ``cli.main(ARGS)``, then its code and the counts
+    written to OUT."""
+    import torch
+
+    from cova_tpu_torch import cli
+
+    zero_counts()
+    rc = cli.main(list(args))
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    with open(out, "w") as f:
+        json.dump({"rc": rc, "launches": launch_counts()}, f)
+    return rc
+
+
+def launch_ranks(cmds, tmp, name, cwd=ROOT):
+    """Run ``cmds`` (one per rank) as one launch through the COVA_*
+    environment, each rank's output into ``tmp/<name>.rank<r>.log``; a
+    failing rank stops the others, and so does PAR_TIMEOUT. Returns each
+    rank's output."""
+    from cova_tpu_torch.parallel.launch import free_port, rank_env, wait_all
+
+    port = free_port()
+    procs, logs = [], []
+    for r, cmd in enumerate(cmds):
+        env = rank_env(r, len(cmds), port)
+        env["COVA_DIST_INIT_TIMEOUT"] = str(PAR_TIMEOUT)
+        logs.append(os.path.join(tmp, f"{name}.rank{r}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(cmd, env=env, cwd=cwd, stdout=log,
+                                          stderr=subprocess.STDOUT))
+    codes = wait_all(procs, PAR_TIMEOUT)
+    outs = []
+    for log in logs:
+        with open(log) as f:
+            outs.append(f.read())
+    for r, (rc, out) in enumerate(zip(codes, outs)):
+        need(rc == 0, f"{name}: rank {r} returned {rc}:\n{out[-4000:]}")
+    return outs
+
+
+def rank_command(out, args):
+    """The command of one rank of ``cli_ranks``."""
+    return [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "_cli_rank",
+            out, *args]
+
+
+def cli_ranks(torch, args, tmp, name, n=2, cwd=ROOT):
+    """``cli.main(args)`` as ``n`` ranks on this card (gloo); returns each
+    rank's output and its kernel launches, counted from 0 over the run."""
+    cmds = [rank_command(os.path.join(tmp, f"{name}.rank{r}.json"), args)
+            for r in range(n)]
+    outs = launch_ranks(cmds, tmp, name, cwd)
+    launches = []
+    for r in range(n):
+        with open(os.path.join(tmp, f"{name}.rank{r}.json")) as f:
+            launches.append(json.load(f)["launches"])
+    return outs, launches
+
+
+# The parallel phase's step rules. Losses: rtol 1e-3 in bf16, 1e-5 in f32.
+# Gradients: tp = 2 splits no batch (every rank sums the BN statistics of
+# all 10 pages in the single step's order) and is held to the train
+# phase's rule. dp = 2 sums them as two halves, so its forward differs from
+# the single step's in the last bits, and a training loss has kinks: among
+# ~10^7 ReLU inputs and pooled maxima some lie within a rounding of theirs,
+# and a unit that changes sides moves gradient entries by percents (f32,
+# TF32 off, with the plain ops on the CPU: 0.02 of the tolerance at 64^2,
+# 0.25 at 256^2). The same kinks show in one process when the batch's two
+# halves are swapped (a step with the same loss and gradients, summed in
+# another order; at 1280^2 on an NVIDIA H100 80GB HBM3 at 700 W: 0.956
+# of the tolerance in f32, 6.13 in bf16, where every activation after a
+# BN is a bf16 step off, on the tensors where dp = 2 sits at 0.954 and
+# 6.64): dp = 2 may be no farther from the single step than
+# PAR_SPREAD_MARGIN times that, or the rule, whichever is larger.
+PAR_LOSS_RTOL = {"bfloat16": 1e-3, "float32": 1e-5}
+PAR_SPREAD_MARGIN = 1.5
+
+
+def parallel_steps(torch, root, device, layouts, singles, swapped, n=2):
+    """One step of the saved global batch on each of ``layouts`` in each
+    dtype of ``singles`` (one launch of ``n`` ranks of
+    ``parallel.step_check`` on ``device``), held against the single-process
+    steps ``singles`` ({dtype: run_layout's result}): the loss sum, every
+    rank's kernels launched, and every gradient within the train phase's
+    rule (dp > 1: or within PAR_SPREAD_MARGIN of ``swapped``'s distance,
+    the single step with the batch's halves swapped)."""
+    spec_path = os.path.join(root, "spec.json")
+    with open(spec_path) as f:
+        spec = json.load(f)
+    spec.update(layouts=layouts, device=device, dtypes=list(singles))
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    launch_ranks([[sys.executable, "-m", "cova_tpu_torch.parallel.step_check",
+                   root]] * n, root, f"step_{device.replace(':', '')}")
+    rows = {}
+    for dtype, single in singles.items():
+        for n_data, n_model in layouts:
+            tag = f"{n_data}x{n_model}.{dtype}"
+            res = torch.load(os.path.join(root, f"{tag}.pt"),
+                             weights_only=True)
+            ranks = []
+            for r in range(n):
+                with open(os.path.join(root, f"{tag}.rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+                need(all(ranks[r]["launches"][k] > 0
+                         for k in TRAIN_KERNELS),
+                     f"{tag} on {device}: rank {r} launched {ranks[r]}")
+            loss_rel = abs(res["loss_sum"] - single["loss_sum"]) / abs(
+                single["loss_sum"])
+            need(loss_rel <= PAR_LOSS_RTOL[dtype],
+                 f"{tag} on {device}: loss {res['loss_sum']} vs "
+                 f"{single['loss_sum']}")
+            vs_single = grad_diff(res["grads"], single["grads"])
+            spread = swapped[dtype]["share_of_tolerance"]
+            limit = (max(1.0, PAR_SPREAD_MARGIN * spread) if n_data > 1
+                     else 1.0)
+            need(vs_single["share_of_tolerance"] <= limit,
+                 f"{tag} on {device}: gradients beyond the tolerance "
+                 f"against the single-process step: {vs_single} (limit "
+                 f"{limit})")
+            rows[tag] = dict(
+                layout={"data": n_data, "model": n_model},
+                loss_sum=res["loss_sum"], loss_rel_diff=loss_rel,
+                grad_vs_single=vs_single,
+                grad_limit=limit,
+                elements_beyond_1e_3=grad_element_share(res["grads"],
+                                                        single["grads"]),
+                ms_per_step=[x["ms_per_step"] for x in ranks],
+                grad_sync_ms=[x["grad_sync_ms"] for x in ranks],
+                allreduce_bytes=ranks[0]["allreduce_bytes"],
+                broadcast_bytes=ranks[0]["broadcast_bytes"],
+                launches=[x["launches"] for x in ranks])
+    return rows
+
+
+def phase_parallel(torch, dev, tmp):
+    """The port on two ranks (two processes on this card over gloo,
+    launched through the COVA_* environment) at full width: (a) ``cli
+    train`` (-bs 10 global, one epoch) then ``cli eval`` on both ranks,
+    every rank through K1, K3, K5 and K6, rank 0 alone printing and
+    writing, and a one-process ``eval`` of the checkpoint giving the
+    two-rank TEST rows; (b) one step of a fixed global batch (B = 10, P =
+    232, -dp 0, seeded weights) at dp = 2 and at tp = 2 against the
+    single-process step, timed; (c) (b) over NCCL, one card a rank, where
+    the host has two cards."""
+    import numpy as np
+
+    from cova_tpu_torch import cli
+    from cova_tpu_torch.config import Config
+    from cova_tpu_torch.data.batching import pad_batch
+    from cova_tpu_torch.data.pipeline import make_pipelines
+    from cova_tpu_torch.data.synthetic import InMemoryWebDataset
+    from cova_tpu_torch.parallel.step_check import run_layout, save_batch
+
+    out = os.path.join(tmp, "par_results")
+    flags = ["--synthetic", str(PAR_PAGES), "--img_height", str(IMG), "-bs",
+             str(PAR_B), "--device", PAR_DEVICE, "--output_dir", out]
+    t0 = time.perf_counter()
+    outs, launches = cli_ranks(torch, ["train", *flags, "-e", "1"], tmp,
+                               "train")
+    train_s = time.perf_counter() - t0
+    for r, got in enumerate(launches):
+        need(all(got[k] > 0 for k in TRAIN_KERNELS),
+             f"train rank {r}: a kernel of the path did not launch: {got}")
+    need("Epoch:" in outs[0] and "Epoch:" not in outs[1],
+         "rank 0 alone prints the epochs")
+    need("Mesh: {'data': 2, 'model': 1} backend: gloo" in outs[0],
+         "rank 0 logs the mesh")
+    res = os.path.join(out, Config(img_height=IMG, batch_size=PAR_B)
+                       .params_key)
+    for name in ("Fold-1 logs.txt", "Fold-1 test_acc_imgwise.csv",
+                 "Fold-1 test_acc_domainwise.csv", "fold_wise_acc.csv",
+                 "metrics.jsonl", "Fold-1 saved_model.pt/best.pt",
+                 "Fold-1 saved_model.pt/last.pt"):
+        need(os.path.isfile(os.path.join(res, name)),
+             f"two-rank train wrote no {name!r}")
+    with open(os.path.join(res, "Fold-1 logs.txt")) as f:
+        log = f.read()
+    need(log.count("Epoch:") == 1, "the log holds one epoch line")
+    with open(os.path.join(res, "fold_wise_acc.csv")) as f:
+        need(len(f.read().strip().splitlines()) == 2, "one fold row")
+
+    ev2, ev1 = os.path.join(tmp, "eval2"), os.path.join(tmp, "eval1")
+    os.makedirs(ev2)
+    os.makedirs(ev1)
+    t0 = time.perf_counter()
+    _, eval_launches = cli_ranks(torch, ["eval", *flags], tmp, "eval",
+                                 cwd=ev2)
+    eval_s = time.perf_counter() - t0
+    cwd = os.getcwd()
+    os.chdir(ev1)
+    try:
+        need(cli.main(["eval", *flags]) == 0, "one-process eval failed")
+    finally:
+        os.chdir(cwd)
+    csv = "Fold-1 test_acc_imgwise.csv"
+    one = read_csv_rows(os.path.join(ev1, csv))
+    need(read_csv_rows(os.path.join(ev2, csv)) == one,
+         "the two-rank eval's TEST rows differ from one process's")
+    need(read_csv_rows(os.path.join(res, csv)) == one,
+         "the two-rank train's TEST rows differ from the one-process eval "
+         "of its checkpoint")
+
+    # (b) one step of one global batch, from one set of seeded weights.
+    cfg = Config(img_height=IMG, batch_size=PAR_B, drop_prob=0.0)
+    ds = InMemoryWebDataset(PAR_B, IMG, seed=SEED + 3,
+                            max_boxes=cfg.max_boxes)
+    train_p, _, _ = make_pipelines(cfg, ds, ds, ds)
+    _, batch = next(iter(train_p.epoch(1)))
+    batch = pad_batch(batch, PAR_B)[0]
+    need(batch.boxes.shape[:2] == (PAR_B, P), f"batch {batch.boxes.shape}")
+    sd = random_state_dict(torch, cfg)
+    root = os.path.join(tmp, "step")
+    os.makedirs(root)
+    torch.save(sd, os.path.join(root, "weights.pt"))
+    save_batch(os.path.join(root, "batch.npz"), batch)
+    with open(os.path.join(root, "spec.json"), "w") as f:
+        json.dump(dict(config=dict(img_height=IMG, batch_size=PAR_B,
+                                   drop_prob=0.0), seed=SEED,
+                       timing=PAR_TIMING), f)
+    singles, swapped = {}, {}
+    half = PAR_B // 2
+    flipped = type(batch)(*[np.concatenate([x[half:], x[:half]])
+                            for x in batch])
+    for dtype in ("bfloat16", "float32"):
+        dcfg = cfg.replace(compute_dtype=dtype)
+        singles[dtype] = run_layout(dcfg, sd, batch, dev, SEED, None,
+                                    PAR_TIMING)
+        need(all(singles[dtype]["launches"][k] > 0 for k in TRAIN_KERNELS),
+             f"single-process step launched {singles[dtype]['launches']}")
+        other = run_layout(dcfg, sd, flipped, dev, SEED, None)
+        swapped[dtype] = dict(
+            **grad_diff(other["grads"], singles[dtype]["grads"]),
+            loss_rel_diff=abs(other["loss_sum"] - singles[dtype]["loss_sum"])
+            / abs(singles[dtype]["loss_sum"]),
+            elements_beyond_1e_3=grad_element_share(
+                other["grads"], singles[dtype]["grads"]))
+        del other
+    layouts = [[2, 1], [1, 2]]
+    steps = parallel_steps(torch, root, PAR_DEVICE, layouts, singles,
+                           swapped)
+    if torch.cuda.device_count() >= 2:
+        nccl = parallel_steps(torch, root, "cuda", layouts, singles, swapped)
+    else:
+        nccl = "one card: not run"
+    return dict(
+        pages=PAR_PAGES, global_batch=PAR_B, ranks=2, backend="gloo",
+        train=dict(seconds=train_s, launches=launches),
+        eval=dict(seconds=eval_s, launches=eval_launches,
+                  test_rows=len(one) - 1, equal_to_one_process=True),
+        steps=dict(batch=PAR_B, P=P, timing=PAR_TIMING,
+                   single={dt: dict(ms_per_step=x["ms_per_step"],
+                                    loss_sum=x["loss_sum"],
+                                    launches=x["launches"])
+                           for dt, x in singles.items()},
+                   single_halves_swapped=swapped,
+                   gloo_one_card=steps, grad_rtol=GRAD_RTOL,
+                   grad_atol=GRAD_ATOL, spread_margin=PAR_SPREAD_MARGIN,
+                   loss_rtol=PAR_LOSS_RTOL),
+        nccl=nccl,
+    )
+
+
 def check_prefetcher(torch, dev, cfg):
     """The trainer's path to the device: every prefetched batch equals its
     host batch byte for byte, and a first train step fed by the prefetcher
@@ -1855,6 +2148,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from cova_tpu_torch.ops import _build  # fails outside the repo
 
+    if sys.argv[1:2] == ["_cli_rank"]:  # a rank of the parallel phase
+        return cli_rank(sys.argv[2], sys.argv[3:])
+
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1893,7 +2189,8 @@ def main() -> int:
     # Phase names as arguments run those phases alone (for work on one of
     # them); the summary and the ok line come only from a whole run.
     phases = ("kernels", "conv_kernels", "serve", "train", "bench",
-              "export", "visualize", "sweep", "conv", "backbones")
+              "export", "visualize", "sweep", "parallel", "conv",
+              "backbones")
     only = sys.argv[1:]
     need(all(p in phases for p in only), f"phases are {phases}")
 
@@ -1957,6 +2254,11 @@ def main() -> int:
         seconds()
         with tempfile.TemporaryDirectory() as tmp:
             emit({"phase": "sweep", **phase_sweep(torch, dev, tmp),
+                  "seconds": seconds()})
+    if wanted("parallel"):
+        seconds()
+        with tempfile.TemporaryDirectory() as tmp:
+            emit({"phase": "parallel", **phase_parallel(torch, dev, tmp),
                   "seconds": seconds()})
     if wanted("conv"):
         seconds()

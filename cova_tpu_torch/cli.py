@@ -25,6 +25,18 @@ the fold's exported ``Fold-<k> saved_model.pth``, which ``export`` writes.
 ``oracle_acc.csv``; ``sweep`` trains each fold in this process and
 aggregates ``fold_wise_acc.csv`` into ``sweep_summary.txt``. ``bench``
 prints one JSON line (``benchmarks.py``).
+
+Several devices (``train``, ``eval`` and ``sweep``; the other subcommands
+run on one device, as the JAX package's do):
+
+    python -m cova_tpu_torch.cli train --num_devices 2 --device cpu
+    python -m cova_tpu_torch.cli train --num_devices 4 --model_parallel 2
+
+``--num_devices N`` starts N ranks on this host (``parallel/launch.py``);
+a launch through ``COVA_COORDINATOR_ADDRESS``, ``COVA_NUM_PROCESSES`` and
+``COVA_PROCESS_ID`` (``parallel/distributed.py``) runs one rank per process
+and defaults to every rank. The ranks form a (data, model) mesh
+(``parallel/mesh.py``); rank 0 prints and writes the artifacts.
 """
 
 from __future__ import annotations
@@ -66,9 +78,14 @@ def _add_common_flags(p: argparse.ArgumentParser):
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--num_devices", type=int, default=1,
-                   help="devices (only 1 in this slice)")
+                   help="devices (ranks) of the (data, model) mesh of "
+                        "train/eval/sweep: 1 = one device, 0 = all, N = "
+                        "exactly N (started on this host unless the "
+                        "COVA_* launch environment is set)")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="tensor-parallel factor (only 1 in this slice)")
+                   help="tensor-parallel factor within num_devices "
+                        "(the GAT projections and the decoder's hidden "
+                        "layer)")
     p.add_argument("--resume", action="store_true",
                    help="resume from the last checkpoint if present")
     p.add_argument("--init_checkpoint", default=None, metavar="PATH.pth",
@@ -116,13 +133,19 @@ def _cfg_from_args(args) -> Config:
     )
 
 
+def _device_name(name: str) -> str:
+    return f"cuda:{name}" if name.isdigit() else name
+
+
 def resolve_device(name: str):
     """The torch device for ``--device``. CUDA is the default, and without
-    a GPU it is an error, never a silent move to the CPU."""
+    a GPU it is an error, never a silent move to the CPU. In a multi-rank
+    launch ``cuda`` is this rank's card (``distributed.rank_device``)."""
     import torch
 
-    if name.isdigit():
-        name = f"cuda:{name}"
+    from .parallel.distributed import rank_device
+
+    name = _device_name(name)
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
@@ -132,7 +155,7 @@ def resolve_device(name: str):
         )
     if device.type not in ("cuda", "cpu"):
         raise SystemExit(f"--device {name}: only cuda and cpu are supported")
-    return device
+    return rank_device(name)
 
 
 def _set_numerics(cfg: Config) -> None:
@@ -145,10 +168,39 @@ def _set_numerics(cfg: Config) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _refuse_unported(cfg: Config, command: str) -> None:
-    if cfg.num_devices != 1 or cfg.model_parallel != 1:
-        raise SystemExit(f"cova_tpu_torch {command} runs on one device "
-                         "(multi-GPU is not ported yet)")
+def _launch_mesh(cfg: Config):
+    """(cfg, the mesh of a ``train`` or ``eval`` run; None on one device).
+    A multi-process launch means every rank: ``--num_devices 1`` becomes 0
+    there."""
+    from .parallel import distributed
+    from .parallel.mesh import mesh_from_config
+    from .utils.logging import print_and_log
+
+    if distributed.is_multiprocess() and cfg.num_devices == 1:
+        print_and_log(
+            f"Multi-host launch ({distributed.world_size()} processes): "
+            "using all global devices (--num_devices 0)", None,
+        )
+        cfg = cfg.replace(num_devices=0)
+    mesh = mesh_from_config(cfg)
+    return cfg, mesh
+
+
+def _mesh_line(mesh, device) -> str:
+    """``Mesh: {'data': d, 'model': m}``, then the backend and each rank's
+    device (on one host: rank r holds ``cuda:(r % device_count)``)."""
+    import torch
+
+    from .parallel import distributed
+
+    n = distributed.world_size()
+    if device.type == "cuda":
+        k = torch.cuda.device_count()
+        devices = [f"cuda:{r % k}" for r in range(n)]
+    else:
+        devices = ["cpu"] * n
+    return "Mesh: %s backend: %s devices: %s" % (
+        mesh.shape, distributed.backend(), ",".join(devices))
 
 
 def _load_datasets(cfg: Config, args):
@@ -196,30 +248,38 @@ def _load_datasets(cfg: Config, args):
     ), webpage_info, test_domains)
 
 
-def _build(cfg: Config, device, train_ds, val_ds, test_ds):
+def _build(cfg: Config, device, train_ds, val_ds, test_ds, mesh=None):
     """The model (initialised from ``cfg.seed``) on ``device``, its train
-    state and the three pipelines."""
+    state laid out on ``mesh`` and the three pipelines (train: this rank's
+    stripe)."""
     from .data.pipeline import make_pipelines
     from .models.cova import build_model
     from .train.steps import create_train_state
+    from .utils.logging import print_and_log
     from .utils.params import count_parameters
 
     if train_ds.n_additional_feat:
         cfg = cfg.replace(n_additional_feat=train_ds.n_additional_feat)
-    pipelines = make_pipelines(cfg, train_ds, val_ds, test_ds)
+    pipelines = make_pipelines(
+        cfg, train_ds, val_ds, test_ds,
+        host_shard=mesh.host_shard if mesh is not None else None)
     model = build_model(cfg, device=device)
-    state = create_train_state(model, cfg)
     # Trainable-parameter line at init (reference models.py:92).
-    print("Model Parameters:", count_parameters(model))
+    print_and_log("Model Parameters: %d" % count_parameters(model), None)
+    state = create_train_state(model, cfg, mesh)
     return (cfg, state, *pipelines)
 
 
-def load_model(cfg: Config, device, torch_model: Optional[str] = None):
+def load_model(cfg: Config, device, torch_model: Optional[str] = None,
+               mesh=None):
     """The eval-mode model of ``cfg`` on ``device``: the weights of
     ``torch_model`` (a reference-format state_dict, strict load), else the
-    fold's best checkpoint, else the fold's exported ``.pth``."""
+    fold's best checkpoint, else the fold's exported ``.pth``; laid out on
+    ``mesh`` when one is given."""
     from .models.cova import build_model
+    from .parallel.mesh import parallelize
     from .utils.checkpoint import CheckpointManager, load_checkpoint
+    from .utils.logging import print_and_log
     from .utils.weights import load_state_dict_file
 
     best = CheckpointManager(cfg.ckpt_dir()).path("best")
@@ -239,8 +299,8 @@ def load_model(cfg: Config, device, torch_model: Optional[str] = None):
         sd = load_state_dict_file(path)
     model = build_model(cfg, device="cpu")
     model.load_state_dict(sd, strict=True)
-    print(f"Serving checkpoint: {path}")
-    return model.to(device)
+    print_and_log(f"Serving checkpoint: {path}", None)
+    return parallelize(model, mesh).to(device)
 
 
 def _log_header(cfg: Config, log_file: str) -> None:
@@ -271,20 +331,20 @@ def cmd_train(args) -> int:
     from .train.reporting import append_fold_row, evaluate
     from .train.trainer import fit
     from .utils.checkpoint import CheckpointManager
-    from .utils.logging import MetricsLogger
+    from .utils.logging import MetricsLogger, print_and_log
 
     cfg = _cfg_from_args(args)
     device = resolve_device(args.device)
-    _refuse_unported(cfg, "train")
     if args.init_checkpoint and not os.path.isfile(args.init_checkpoint):
         raise SystemExit(f"--init_checkpoint {args.init_checkpoint}: no "
                          "such file")
     _set_numerics(cfg)
+    cfg, mesh = _launch_mesh(cfg)
     train_ds, val_ds, test_ds, webpage_info, test_domains = _load_datasets(
         cfg, args
     )
     cfg, state, train_p, val_p, test_p = _build(
-        cfg, device, train_ds, val_ds, test_ds
+        cfg, device, train_ds, val_ds, test_ds, mesh
     )
     if args.init_checkpoint:
         from .utils.pretrained import init_backbone_from_checkpoint
@@ -294,9 +354,12 @@ def cmd_train(args) -> int:
 
     os.makedirs(cfg.results_dir, exist_ok=True)
     log_file = cfg.log_file()
-    print(f'\n{"*"*20} Training on Fold-{cfg.cv_fold} {"*"*20}')
-    print(f'logs will be saved in "{log_file}"')
+    print_and_log(f'\n{"*"*20} Training on Fold-{cfg.cv_fold} {"*"*20}',
+                  None)
+    print_and_log(f'logs will be saved in "{log_file}"', None)
     _log_header(cfg, log_file)
+    if mesh is not None:
+        print_and_log(_mesh_line(mesh, device), log_file)
 
     ckpt = CheckpointManager(cfg.ckpt_dir())
     metrics = MetricsLogger(os.path.join(cfg.results_dir, "metrics.jsonl"))
@@ -310,6 +373,7 @@ def cmd_train(args) -> int:
         state.model, test_p, cfg.n_classes, CLASS_NAMES, log_file,
         prefix + "test_acc_imgwise.csv", webpage_info, test_domains,
         prefix + "test_acc_domainwise.csv", box_buckets=cfg.box_buckets,
+        mesh=mesh,
     )
     append_fold_row(
         os.path.join(cfg.results_dir, "fold_wise_acc.csv"),
@@ -328,8 +392,11 @@ def _append_oracle_row(cfg: Config, test_ds, log_file: str) -> None:
     pixels-only rule, which folds occlusion in). The oracle reads only the
     data."""
     from .data.synthetic import oracle_retrieval_correct
+    from .parallel.distributed import is_primary
     from .utils.logging import print_and_log
 
+    if not is_primary():
+        return
     lat = oracle_retrieval_correct(test_ds).mean(axis=0) * 100
     vis = oracle_retrieval_correct(test_ds, visible=True).mean(axis=0) * 100
     for name, acc in (("latent", lat), ("visible", vis)):
@@ -357,25 +424,30 @@ def cmd_eval(args) -> int:
     test split; the reports go to the working directory, as the
     reference's ``evaluate.py`` writes them."""
     from .data.pipeline import make_eval_pipeline
+    from .parallel.distributed import is_primary
     from .train.reporting import evaluate
+    from .utils.logging import print_and_log
 
     cfg = _cfg_from_args(args)
     device = resolve_device(args.device)
-    _refuse_unported(cfg, "eval")
     _set_numerics(cfg)
+    cfg, mesh = _launch_mesh(cfg)
+    if mesh is not None:
+        print_and_log(_mesh_line(mesh, device), None)
     _, _, test_ds, webpage_info, test_domains = _load_datasets(cfg, args)
     if test_ds.n_additional_feat:
         cfg = cfg.replace(n_additional_feat=test_ds.n_additional_feat)
-    model = load_model(cfg, device, args.torch_model)
+    model = load_model(cfg, device, args.torch_model, mesh)
     class_acc, macro_acc = evaluate(
         model, make_eval_pipeline(cfg, test_ds), cfg.n_classes, CLASS_NAMES,
         f"Fold-{cfg.cv_fold} test_acc_classwise.txt",
         f"Fold-{cfg.cv_fold} test_acc_imgwise.csv",
         webpage_info, test_domains,
         f"Fold-{cfg.cv_fold} test_acc_domainwise.csv",
-        k=args.top_k, box_buckets=cfg.box_buckets,
+        k=args.top_k, box_buckets=cfg.box_buckets, mesh=mesh,
     )
-    print("Class acc:", class_acc[1:], "Macro acc:", macro_acc[1:])
+    if is_primary():
+        print("Class acc:", class_acc[1:], "Macro acc:", macro_acc[1:])
     return 0
 
 
@@ -389,7 +461,6 @@ def cmd_predict(args) -> int:
 
     cfg = _cfg_from_args(args)
     device = resolve_device(args.device)
-    _refuse_unported(cfg, "predict")
     if args.page_ids and args.synthetic:
         raise SystemExit("--page_ids requires on-disk data, not "
                          "--synthetic (synthetic predicts its test split)")
@@ -441,7 +512,6 @@ def cmd_export(args) -> int:
 
     cfg = _cfg_from_args(args)
     resolve_device(args.device)  # checked as everywhere; export runs on host
-    _refuse_unported(cfg, "export")
     if cfg.use_additional_feat and cfg.n_additional_feat == 0:
         # Discovered from the data elsewhere; export has no dataset in
         # hand, so the flag gives it (synthetic and the reference's
@@ -483,7 +553,6 @@ def cmd_visualize(args) -> int:
         raise SystemExit(
             "Attention Scores can only be computed if CONTEXT_SIZE > 0")
     device = resolve_device(args.device)
-    _refuse_unported(cfg, "visualize")
     _set_numerics(cfg)
     _, _, test_ds, _, _ = _load_datasets(cfg, args)
     if test_ds.n_additional_feat:
@@ -580,15 +649,18 @@ def cmd_sweep(args) -> int:
     one ``cmd_train`` call per fold (nothing re-executes the process, so a
     fold cannot restart the sweep), then aggregate into the published
     mean ± std table, ``sweep_summary.txt``."""
+    from .parallel.distributed import is_primary
+
     rc = 0
     for fold in args.folds:
         fold_args = argparse.Namespace(**vars(args))
         fold_args.cv_fold = fold
-        print(f"\n===== Fold {fold} =====")
+        if is_primary():
+            print(f"\n===== Fold {fold} =====")
         rc |= cmd_train(fold_args)
     cfg = _cfg_from_args(args)
     path = os.path.join(cfg.results_dir, "fold_wise_acc.csv")
-    if rc == 0 and os.path.isfile(path):
+    if rc == 0 and os.path.isfile(path) and is_primary():
         summary = sweep_summary(path, args.folds)
         if summary:
             print("\n===== Sweep summary (mean ± std over folds) =====")
@@ -606,7 +678,6 @@ def cmd_bench(args) -> int:
 
     cfg = _cfg_from_args(args)
     device = resolve_device(args.device)
-    _refuse_unported(cfg, "bench")
     _set_numerics(cfg)
     # -bs and --batch_size_bench are one knob here: bench's parser
     # defaults batch_size to None so that an explicit -bs is seen; -bsb
@@ -723,7 +794,42 @@ def main(argv: Optional[list] = None) -> int:
                         "are cache-warm)")
     b.set_defaults(fn=cmd_bench)
     args = parser.parse_args(argv)
-    return args.fn(args)
+    if args.command not in MULTI_RANK:
+        return args.fn(args)
+    from .parallel import distributed
+
+    if not distributed.launched():
+        n = _ranks_to_start(args)
+        if n > 1:
+            from .parallel.launch import spawn
+
+            return spawn(sys.argv[1:] if argv is None else list(argv), n)
+    distributed.initialize(_device_name(args.device))
+    try:
+        return args.fn(args)
+    finally:
+        distributed.shutdown()
+
+
+# The subcommands that run on several ranks; the others run on one device.
+MULTI_RANK = ("train", "eval", "sweep")
+
+
+def _ranks_to_start(args) -> int:
+    """The ranks ``--num_devices`` asks this process to start (1: run
+    here), after the mesh's checks: on ``cuda`` at most the visible cards
+    (0 = all of them); on the CPU any number (0 = one)."""
+    import torch
+
+    from .parallel.mesh import mesh_from_config
+
+    n = args.num_devices
+    if resolve_device(args.device).type == "cuda":
+        visible = torch.cuda.device_count()
+    else:
+        visible = max(n, 1)
+    mesh = mesh_from_config(_cfg_from_args(args), n_visible=visible)
+    return 1 if mesh is None else mesh.n_data * mesh.n_model
 
 
 if __name__ == "__main__":

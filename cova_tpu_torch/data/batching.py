@@ -94,15 +94,21 @@ def _max_valid(batch: Batch) -> int:
     return int(batch.box_mask.sum(axis=1).max()) if batch.box_mask.size else 0
 
 
-def bucket_batch(batch: Batch, buckets: Sequence[int]) -> Batch:
+def bucket_batch(batch: Batch, buckets: Sequence[int],
+                 lower_bound: int = 0) -> Batch:
     """Slice the box dim down to the smallest bucket holding every page's
     valid boxes (valid rows are front-packed by ``records.pad_page``), so all
     box-dim work shrinks to the batch's real box count. Every sliced-off row
     is masked padding, and per-image context indices are always below the
-    page's valid count, so the result is unchanged."""
+    page's valid count, so the result is unchanged.
+
+    ``lower_bound``: the least box count the bucket must hold whatever this
+    batch holds. A multi-rank run passes the global batch's largest count
+    (``DataPipeline.global_batch_max_counts``), so every rank picks the
+    bucket the whole batch needs."""
     p_full = batch.boxes.shape[1]
     target = (
-        _bucket_target(_max_valid(batch), p_full, buckets)
+        _bucket_target(max(_max_valid(batch), lower_bound), p_full, buckets)
         if buckets
         else p_full
     )

@@ -26,6 +26,10 @@ Module and parameter names are the reference's torch namespace
 checkpoint, or one exported by ``cova export``, strict-loads with no
 permutation.
 
+Tensor parallelism (``tp_group``, set by ``parallel.mesh.parallelize``):
+the GAT's projections and ``decoder.1`` hold this rank's rows and gather
+their outputs over the model group; the rest of the model is replicated.
+
 Numerics follow the JAX package: parameters stay f32 and are cast to the
 compute dtype at use, BN math runs in f32 and is then cast, the GAT's
 softmax and neighbour sum accumulate in f32, and logits and attention come
@@ -41,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.roi_pool import roi_pool
+from ..parallel.collectives import copy_to_group, gather_last
 from .gat import GraphAttention
 from .layers import MaskedBatchNorm
 from .resnet import he_normal_, make_backbone
@@ -88,6 +93,7 @@ class CoVA(nn.Module):
         self.n_additional_feat = n_additional_feat
         self.roi_output_size = roi_output_size
         self.compute_dtype = compute_dtype
+        self.tp_group = None
         self.convnet = make_backbone(backbone)
         n_visual = self.convnet.output_channels * roi_output_size**2
         if bbox_hidden_dim > 0:
@@ -184,8 +190,9 @@ class CoVA(nn.Module):
                 return t
             return _dropout(t, slot.p, generator)
 
-        y = drop(combined, d[0])
-        y = d[2](_linear(d[1], y), box_mask)
+        y = copy_to_group(drop(combined, d[0]), self.tp_group)
+        y = gather_last(_linear(d[1], y), self.tp_group)
+        y = d[2](y, box_mask)
         y = drop(F.relu(y), d[4])
         logits = _linear(d[5], y)
         return CoVAOutput(

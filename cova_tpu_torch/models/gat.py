@@ -9,6 +9,12 @@ projected neighbours (no final nonlinearity, one head).
 Projections run before any gather, and the logit
 ``a . [Wh_i ; Wh_j] + b`` splits into ``a1 . Wh_i + b`` and ``a2 . Wh_j``,
 so only per-node scalars are gathered for the scores.
+
+Tensor parallelism (``tp_group``, set by ``parallel.mesh.parallelize``):
+``W_i`` and ``W_j`` then hold this rank's rows of the projections (the JAX
+package shards their kernels' output axis on the mesh's model axis); each
+rank projects its slice and the slices are gathered, so everything after
+the projections runs replicated.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.gat_attention import gather_scalar, neighbor_aggregate
+from ..parallel.collectives import copy_to_group, gather_last
 
 NEG_INF = -9e15  # the reference's mask value
 
@@ -32,6 +39,7 @@ class GraphAttention(nn.Module):
         self.W_i = nn.Linear(in_features, hidden_dim, bias=False)
         self.W_j = nn.Linear(in_features, hidden_dim, bias=False)
         self.attention_layer = nn.Linear(2 * hidden_dim, 1)
+        self.tp_group = None
 
     def forward(
         self, h: torch.Tensor, ctx_idx: torch.Tensor
@@ -40,8 +48,10 @@ class GraphAttention(nn.Module):
         indices, -1 = empty. Returns (context repr [B, P, H] and attention
         weights [B, P, K], both in h.dtype)."""
         dt = h.dtype
-        wh_i = F.linear(h, self.W_i.weight.to(dt))
-        wh_j = F.linear(h, self.W_j.weight.to(dt))
+        g = self.tp_group
+        h_tp = copy_to_group(h, g)
+        wh_i = gather_last(F.linear(h_tp, self.W_i.weight.to(dt)), g)
+        wh_j = gather_last(F.linear(h_tp, self.W_j.weight.to(dt)), g)
         a = self.attention_layer.weight[0].to(dt)
         s_i = wh_i @ a[: self.hidden_dim] + self.attention_layer.bias.to(dt)
         s_j = gather_scalar(wh_j @ a[self.hidden_dim :], ctx_idx)

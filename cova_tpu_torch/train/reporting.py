@@ -9,6 +9,9 @@ artifact schema byte for byte (the CSV files are its de-facto API):
     per-class mean accuracy;
   * macro accuracy = unweighted mean of the domain rows, each rounded to
     two decimals first, as the reference re-reads its own CSV.
+
+In a multi-rank run every rank computes the reports and rank 0 alone
+writes them.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..parallel.distributed import is_primary
 from ..utils.logging import print_and_log
 from .trainer import run_eval
 
@@ -34,24 +38,29 @@ def evaluate(
     test_acc_domainwise_file: Optional[str] = None,
     k: int = 1,
     box_buckets=(),
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Returns (class_acc_test, macro_acc_test), each [n_classes] in %."""
-    print(
-        "Evaluating classwise, imgwise (webpagewise), and domainwise "
-        "accuracies on test data..."
-    )
+    """Returns (class_acc_test, macro_acc_test), each [n_classes] in %.
+    ``mesh``: the layout ``model`` runs on (``run_eval`` shards the pages
+    over its data axis)."""
+    if is_primary():
+        print(
+            "Evaluating classwise, imgwise (webpagewise), and domainwise "
+            "accuracies on test data..."
+        )
     img_acc, class_acc_test = run_eval(
         model, test_pipeline, n_classes, class_names, "TEST", log_file, k=k,
-        box_buckets=tuple(box_buckets),
+        box_buckets=tuple(box_buckets), mesh=mesh,
     )
-    np.savetxt(
-        test_acc_imgwise_file,
-        img_acc,
-        "%s,%.2f,%.2f,%.2f",
-        ",",
-        header="img_id,price_acc,title_acc,image_acc",
-        comments="",
-    )
+    if is_primary():
+        np.savetxt(
+            test_acc_imgwise_file,
+            img_acc,
+            "%s,%.2f,%.2f,%.2f",
+            ",",
+            header="img_id,price_acc,title_acc,image_acc",
+            comments="",
+        )
 
     macro_acc_test = np.zeros(len(class_names))
     if (
@@ -76,8 +85,9 @@ def evaluate(
             "%s,%d,%.2f,%.2f,%.2f\n"
             % (domain, len(domain_imgs), *domain_class_acc[:3])
         )
-    with open(test_acc_domainwise_file, "w") as f:
-        f.writelines(lines)
+    if is_primary():
+        with open(test_acc_domainwise_file, "w") as f:
+            f.writelines(lines)
     macro_acc_test[1:] = np.round(np.array(domain_rows), 2).mean(0)
     for c in range(1, len(class_names)):
         print_and_log(
@@ -94,7 +104,10 @@ def append_fold_row(
     class_acc_test: np.ndarray,
     macro_acc_test: np.ndarray,
 ):
-    """Append one row to ``fold_wise_acc.csv`` (header first)."""
+    """Append one row to ``fold_wise_acc.csv`` (header first; rank 0
+    only)."""
+    if not is_primary():
+        return
     with open(fold_wise_acc_file, "a") as f:
         if os.stat(fold_wise_acc_file).st_size == 0:
             f.write(

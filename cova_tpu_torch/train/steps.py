@@ -9,6 +9,14 @@ Counterpart of ``cova_tpu/train/steps.py``:
   * train accuracy counts argmax-correct over all valid boxes, BG included;
   * the eval metric is the reference's retrieval top-k.
 
+On a mesh (``TrainState.mesh``) the step sums every gradient over the data
+group after the backward, in one flat f32 bucket, and then takes the Adam
+step: the loss is a CE sum over the global batch, so gradients are summed,
+never averaged (``weight_decay`` makes their scale matter). A
+tensor-sharded parameter's slice is summed over the data group only; the
+replicated parameters' gradients are made bit-equal across the model group
+(``reduce_gradients``).
+
 The train step returns its metrics as device tensors, so the trainer
 fetches them once per epoch. ``forward_step`` and ``eval_step`` run under
 ``torch.inference_mode()``; the train step does not.
@@ -23,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from ..data.batching import Batch
+from ..parallel.collectives import all_reduce_, broadcast_
+from ..parallel.mesh import MODEL_SHARDED
 
 
 def _to_device(a, device) -> torch.Tensor:
@@ -53,12 +63,14 @@ def batch_to_device(batch: Batch, device) -> dict:
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (parameters and BN statistics), its optimizer and the
-    number of steps taken."""
+    """The model (parameters and BN statistics), its optimizer, the number
+    of steps taken and the mesh the model is laid out on (None: one
+    device)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    mesh: Optional[object] = None
 
     @property
     def device(self) -> torch.device:
@@ -73,12 +85,54 @@ def make_optimizer(params, learning_rate: float,
                             eps=1e-8, weight_decay=weight_decay)
 
 
-def create_train_state(model, cfg) -> TrainState:
+def create_train_state(model, cfg, mesh=None) -> TrainState:
+    """The train state of ``model``, laid out on ``mesh`` first (see
+    ``parallel.mesh.parallelize``) so that the optimizer holds this rank's
+    parameters."""
+    if mesh is not None:
+        from ..parallel.mesh import parallelize
+
+        parallelize(model, mesh)
     return TrainState(
         model=model,
         optimizer=make_optimizer(model.parameters(), cfg.learning_rate,
                                  cfg.weight_decay),
+        mesh=mesh,
     )
+
+
+@torch.no_grad()
+def reduce_gradients(model, mesh) -> dict:
+    """Sum every gradient over the data group in one flat f32 all-reduce
+    (the bucket). With a model axis, the replicated parameters' part of the
+    bucket is then broadcast from the first rank of the model group: each
+    rank computed it alone, and atomics in the backward (cuDNN's weight
+    gradients, scatter-adds) make those copies differ in their last bits,
+    which would let the replicas drift apart. Returns the bytes of each
+    collective."""
+    named = [(n, p.grad) for n, p in model.named_parameters()
+             if p.grad is not None]
+    rep = [g for n, g in named if n not in MODEL_SHARDED]
+    shard = [g for n, g in named if n in MODEL_SHARDED]
+    grads = rep + shard
+    out = {"allreduce_bytes": 0, "broadcast_bytes": 0}
+    if mesh is None or not grads:
+        return out
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    if mesh.data_group is not None:
+        all_reduce_(flat, mesh.data_group)
+        out["allreduce_bytes"] = flat.numel() * flat.element_size()
+    if mesh.model_group is not None:
+        n_rep = sum(g.numel() for g in rep)
+        head = flat[:n_rep]
+        broadcast_(head, mesh.model_root, mesh.model_group)
+        out["broadcast_bytes"] = head.numel() * head.element_size()
+    offset = 0
+    for g in grads:
+        n = g.numel()
+        g.copy_(flat[offset:offset + n].view_as(g))
+        offset += n
+    return out
 
 
 def masked_ce_sum(logits: torch.Tensor, labels: torch.Tensor,
@@ -89,11 +143,13 @@ def masked_ce_sum(logits: torch.Tensor, labels: torch.Tensor,
     return (nll * mask.float()).sum()
 
 
-def train_step(state: TrainState, batch: Batch,
-               generator: Optional[torch.Generator] = None) -> dict:
-    """One forward/backward/update in training mode (batch statistics, BN
-    running-stat updates, dropout from ``generator``). Returns
-    ``loss_sum``, ``n_correct`` and ``n_boxes`` as 0-d device tensors."""
+def forward_backward(state: TrainState, batch: Batch,
+                     generator: Optional[torch.Generator] = None) -> dict:
+    """The forward and backward of a train step in training mode (batch
+    statistics, BN running-stat updates, dropout from ``generator``),
+    leaving in each ``.grad`` the gradient of the global batch's loss (on a
+    mesh, summed over the data group). Returns ``loss_sum``, ``n_correct``
+    and ``n_boxes`` of this rank's rows as 0-d device tensors."""
     model = state.model
     model.train()
     inputs = batch_to_device(batch, state.device)
@@ -103,8 +159,8 @@ def train_step(state: TrainState, batch: Batch,
     loss = masked_ce_sum(out.logits, labels, mask)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    state.optimizer.step()
-    state.step += 1
+    if state.mesh is not None:
+        reduce_gradients(model, state.mesh)
     with torch.no_grad():
         maskf = mask.float()
         preds = out.logits.argmax(-1)
@@ -113,6 +169,17 @@ def train_step(state: TrainState, batch: Batch,
             "n_correct": ((preds == labels).float() * maskf).sum(),
             "n_boxes": maskf.sum(),
         }
+
+
+def train_step(state: TrainState, batch: Batch,
+               generator: Optional[torch.Generator] = None) -> dict:
+    """One forward/backward/update (``forward_backward``, then Adam).
+    Returns ``loss_sum``, ``n_correct`` and ``n_boxes`` as 0-d device
+    tensors (this rank's rows)."""
+    metrics = forward_backward(state, batch, generator)
+    state.optimizer.step()
+    state.step += 1
+    return metrics
 
 
 @torch.inference_mode()

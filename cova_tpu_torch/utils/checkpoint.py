@@ -13,6 +13,12 @@ and ``last.pt``; each is a dict of
 
 so ``--resume`` continues a run exactly. A file is written to a temporary
 name and renamed, so a run cut during a save leaves the previous one.
+
+On a mesh (``state.mesh``) the file is the same as a single device's: every
+rank takes part in gathering the tensor-sharded parameters and their Adam
+moments, rank 0 writes the whole state, and a barrier follows; on restore
+every rank reads the file and keeps its own slices. So a checkpoint
+trained on any layout loads into any other, one device included.
 """
 
 from __future__ import annotations
@@ -20,6 +26,14 @@ from __future__ import annotations
 import os
 
 import torch
+
+from ..parallel import distributed
+from ..parallel.mesh import (
+    gather_optimizer_state,
+    load_full_state_dict,
+    full_state_dict,
+    shard_optimizer_state,
+)
 
 
 class CheckpointManager:
@@ -36,21 +50,30 @@ class CheckpointManager:
         return os.path.isfile(self.path(tag))
 
     def save(self, tag: str, state, extra: dict) -> None:
-        tmp = f"{self.path(tag)}.{os.getpid()}.tmp"
-        torch.save({
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "step": int(state.step),
-            "extra": dict(extra),
-        }, tmp)
-        os.replace(tmp, self.path(tag))
+        mesh = getattr(state, "mesh", None)
+        model = full_state_dict(state.model, mesh)
+        optimizer = gather_optimizer_state(state.optimizer.state_dict(),
+                                           state.model, mesh)
+        if distributed.is_primary():
+            tmp = f"{self.path(tag)}.{os.getpid()}.tmp"
+            torch.save({
+                "model": model,
+                "optimizer": optimizer,
+                "step": int(state.step),
+                "extra": dict(extra),
+            }, tmp)
+            os.replace(tmp, self.path(tag))
+        distributed.barrier()
 
     def restore(self, tag: str, state) -> dict:
         """Load checkpoint ``tag`` into ``state`` in place: model, optimizer
-        and step. Returns its ``extra`` dict."""
+        and step (this rank's slices on a mesh). Returns its ``extra``
+        dict."""
+        mesh = getattr(state, "mesh", None)
         ckpt = load_checkpoint(self.path(tag))
-        state.model.load_state_dict(ckpt["model"], strict=True)
-        state.optimizer.load_state_dict(ckpt["optimizer"])
+        load_full_state_dict(state.model, ckpt["model"], mesh)
+        state.optimizer.load_state_dict(
+            shard_optimizer_state(ckpt["optimizer"], state.model, mesh))
         state.step = int(ckpt["step"])
         return ckpt["extra"]
 

@@ -113,12 +113,34 @@ def test_eval_and_predict_use_the_best_checkpoint(trained, tmp_path,
                                    ["--synthetic_hard", "--num_devices", "2"],
                                    ["--num_devices", "2"],
                                    ["--num_devices", "0"]])
-def test_train_refuses_what_is_not_ported(tmp_path, flags):
-    with pytest.raises(SystemExit) as e:
-        port_main(["train", *SMALL, *PORT, "-e", "1", *flags,
-                   "--output_dir", str(tmp_path)])
-    assert "not ported" in str(e.value.code) or "one device" in str(
-        e.value.code)
+def test_train_refuses_what_is_not_ported(tmp_path, flags, monkeypatch):
+    """Multi-device training is ported, so what is refused now is what the
+    JAX package refuses: ``--num_devices 2`` at the default ``-bs 5`` does
+    not divide the global batch over the data axis (the CE-sum loss makes
+    the batch semantic; it is never resized), and the launching process
+    says so before any rank starts. A mesh of one device
+    (``--model_parallel 2`` alone, ``--num_devices 0`` with the CPU's one
+    device) trains in this process, as the JAX package does (recorded here
+    instead of run). Valid layouts' runs are held in
+    ``tests/test_torch_port_multiprocess.py``."""
+    from cova_tpu_torch import cli
+    from cova_tpu_torch.parallel import launch
+
+    started, here = [], []
+    monkeypatch.setattr(launch, "spawn",
+                        lambda argv, n: started.append((list(argv), n)) or 0)
+    monkeypatch.setattr(cli, "cmd_train", lambda args: here.append(args) or 0)
+    argv = ["train", *SMALL, *PORT, "-e", "1", *flags,
+            "--output_dir", str(tmp_path)]
+    if "--num_devices" in flags and "2" in flags:
+        with pytest.raises(ValueError, match="divisible by the data-"
+                                             "parallel degree 2"):
+            port_main(argv)
+        assert not here
+    else:
+        assert port_main(argv) == 0
+        assert len(here) == 1
+    assert not started
     assert not os.listdir(tmp_path)
 
 

@@ -133,12 +133,20 @@ def test_default_device_refuses_to_run_without_cuda(weights, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--model_parallel", "2"],
                                    ["--num_devices", "2"]])
-def test_unported_options_are_refused(weights, tmp_path, flags):
-    with pytest.raises(SystemExit) as e:
-        port_main(["predict", *SMALL, "--device", "cpu", *flags,
-                   "--torch_model", weights,
-                   "--out_dir", str(tmp_path / "o")])
-    assert e.value.code not in (0, None)
+def test_unported_options_are_refused(weights, tmp_path, flags,
+                                      monkeypatch):
+    """Multi-device is ported for train, eval and sweep; ``predict`` runs
+    on one device whatever ``--num_devices`` and ``--model_parallel`` say,
+    as the JAX package's does, so these options are no longer refused:
+    no rank is started and the pages are predicted here."""
+    from cova_tpu_torch.parallel import launch
+
+    monkeypatch.setattr(launch, "spawn",
+                        lambda *a, **k: pytest.fail("predict started ranks"))
+    out = tmp_path / "o"
+    assert port_main(["predict", *SMALL, "--device", "cpu", *flags,
+                      "--torch_model", weights, "--out_dir", str(out)]) == 0
+    assert (out / "retrieval.csv").is_file()
 
 
 def test_missing_weights_are_refused(tmp_path):
