@@ -125,12 +125,25 @@ Phases, each printing one JSON line:
    warm-ups) beside the single-process step's, and the gradient
    collectives' ms and bytes. (c) With two or more cards, (b) over NCCL,
    one card a rank; otherwise ``"nccl": "one card: not run"``.
+14. corpus: Fold-1 of the corpus clone cut to prefixes of the real
+   ``splits/Fold-1`` lists (40 train, 10 val, 10 test pages with their
+   domains): ``scripts/make_corpus_clone_torch.py`` writes the pages at
+   512^2, then ``cli train -e 2`` runs at full width as a subprocess under
+   ``COVA_RSS_LIMIT_GB=0.001``: the RSS watchdog must re-exec it once after
+   epoch 1 and the new process resume at epoch 2 (two epoch lines, every
+   artifact); K1, K3, K5 and K6 must launch before and after the re-exec
+   (the wrapper writes its counts before it execs). The model's forward on
+   a batch of the clone must hand K5 ys [5, 128, 128, 256] and K1 a map [5,
+   128, 128, 64]. Then K1 and K5 are held bit-exact against their plain
+   versions at 512^2 in bf16 and f32 for every box bucket (P = 64, 128,
+   192, 232) at B = 5 and at a partial batch of one page, K3 and K6 under
+   the kernels phase's rules, each with the plan its wrapper chose.
 
 The train phase also feeds batches through the device prefetcher and holds
 them against the host batches byte for byte. Every phase line carries its
 seconds.
 
-(Phases run in the order 1-3, 6, 4, 5, 9-13, 7, 8.) Then it prints the
+(Phases run in the order 1-3, 6, 4, 5, 9-14, 7, 8.) Then it prints the
 kernels' summary line (one row per TPU kernel, K1-K8), the ``nvidia-smi``
 line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without a GPU,
@@ -173,6 +186,16 @@ PAR_TIMING = {"warmup": 2, "reps": 5}
 PAR_TIMEOUT = 300
 TRAIN_KERNELS = ("roi_pool_fwd", "roi_pool_bwd", "bn_relu_pool_fwd",
                  "bn_relu_pool_bwd")
+# The corpus phase: pages of the corpus clone at its 512^2, for prefixes of
+# the real splits/Fold-1 lists (train, val, test), trained for 2 epochs at
+# full width in a subprocess whose RSS watchdog re-execs it after epoch 1;
+# the kernels at 512^2 for every padded box count the corpus reaches
+# (Config.box_buckets and pad_boxes), at the train batch and at a partial
+# batch of one page.
+CORPUS_IMG, CORPUS_SPLIT = 512, (40, 10, 10)
+CORPUS_BUCKETS = (64, 128, 192, 232)
+CORPUS_BATCHES = (TRAIN_B, 1)
+CORPUS_TIMEOUT = 600
 # Kernel-vs-plain train step: every parameter gradient within GRAD_RTOL of
 # its tensor's largest gradient, plus GRAD_ATOL of the model's largest
 # gradient. The two runs share the forward bit for bit; in the backward,
@@ -420,6 +443,37 @@ def sass_report(build, kernels):
     return rows
 
 
+def check_bn_pool_bwd(torch, gen, shape, dtype, dev, tag):
+    """K6 at ``shape`` (B, U, V, O) on tied inputs against its plain
+    version: dys bit-exact; d(scale)/d(shift), f32 sums over the whole map
+    in another order, within rtol 1e-4 plus 1e-4 of their largest value.
+    Returns its arguments and the errors."""
+    from cova_tpu_torch.ops.bn_pool import (
+        bn_relu_pool_s2d_backward,
+        bn_relu_pool_s2d_backward_reference,
+    )
+
+    b_, u, v, o = shape
+    ys = tied(torch, gen, (b_, u, v, 4 * o), dtype, dev, 8.0)
+    scale = torch.rand(o, generator=gen, device=dev) + 0.5
+    shift = torch.randn(o, generator=gen, device=dev) * 0.5
+    g = torch.randn(b_, u, v, o, generator=gen, device=dev).to(dtype)
+    bargs = (ys, scale, shift, g)
+    got = bn_relu_pool_s2d_backward(*bargs)
+    want = bn_relu_pool_s2d_backward_reference(*bargs)
+    torch.cuda.synchronize()
+    err = float((got[0].float() - want[0].float()).abs().max())
+    need(err == 0.0, f"{tag} dys differs from its plain version by {err}")
+    sum_err = []
+    for a, ref in zip(got[1:], want[1:]):
+        d = float((a - ref).abs().max())
+        tol = 1e-4 * float(ref.abs().max())
+        need(bool(((a - ref).abs() <= tol + 1e-4 * ref.abs()).all()),
+             f"{tag} d(scale)/d(shift) differ by {d}")
+        sum_err.append(d)
+    return bargs, dict(max_abs_err=err, dscale_dshift_max_abs_err=sum_err)
+
+
 def phase_kernels(torch, dev):
     from cova_tpu_torch.ops.bn_pool import (
         bn_relu_pool_s2d,
@@ -635,38 +689,17 @@ def phase_kernels(torch, dev):
         del fm, pooled, g, got, want, args
 
     # K6 away from the flagship shape, then at it (bf16 and f32), on tied
-    # inputs: dys bit-exact; d(scale)/d(shift), f32 sums over the whole map
-    # in another order, within rtol 1e-4 plus 1e-4 of their largest value.
-    def check_bwd(shape, dtype, tag):
-        b_, u, v, o = shape
-        ys = tied(torch, gen, (b_, u, v, 4 * o), dtype, dev, 8.0)
-        scale = torch.rand(o, generator=gen, device=dev) + 0.5
-        shift = torch.randn(o, generator=gen, device=dev) * 0.5
-        g = torch.randn(b_, u, v, o, generator=gen, device=dev).to(dtype)
-        bargs = (ys, scale, shift, g)
-        got = bn_relu_pool_s2d_backward(*bargs)
-        want = bn_relu_pool_s2d_backward_reference(*bargs)
-        torch.cuda.synchronize()
-        err = float((got[0].float() - want[0].float()).abs().max())
-        need(err == 0.0, f"{tag} dys differs from its plain version by {err}")
-        sum_err = []
-        for a, ref in zip(got[1:], want[1:]):
-            d = float((a - ref).abs().max())
-            tol = 1e-4 * float(ref.abs().max())
-            need(bool(((a - ref).abs() <= tol + 1e-4 * ref.abs()).all()),
-                 f"{tag} d(scale)/d(shift) differ by {d}")
-            sum_err.append(d)
-        return bargs, dict(max_abs_err=err, dscale_dshift_max_abs_err=sum_err)
-
+    # inputs (check_bn_pool_bwd).
     for dtype in (torch.bfloat16, torch.float32):
         for shape in BN_RAGGED:
             tag = "bn_relu_pool_bwd_" + "x".join(map(str, shape)) + f"_{dtype}"
-            _, checks[tag] = check_bwd(shape, dtype, tag)
+            _, checks[tag] = check_bn_pool_bwd(torch, gen, shape, dtype,
+                                               dev, tag)
             checks[tag]["plan"] = bwd_plan(dtype, *shape)._asdict()
     for dtype in (torch.bfloat16, torch.float32):
         shape = (TRAIN_B, h, w, 64)
         name = "bn_relu_pool_bwd" + ("" if dtype == torch.bfloat16 else "_f32")
-        bargs, row = check_bwd(shape, dtype, name)
+        bargs, row = check_bn_pool_bwd(torch, gen, shape, dtype, dev, name)
         ys, g = bargs[0], bargs[3]
         isz = ys.element_size()
         n_bytes = 2 * ys.numel() * isz + g.numel() * isz + 2 * 64 * 4 * 2
@@ -1469,8 +1502,21 @@ def cli_rank(out: str, args) -> int:
 
     from cova_tpu_torch import cli
 
+    real_execv = os.execv
+
+    def execv(path, argv):
+        """The RSS watchdog's re-exec (``cli._rss_restart``): this
+        process's counts go to OUT.exec, and the new process runs this
+        wrapper again with the same arguments plus ``--resume``."""
+        with open(out + ".exec", "w") as f:
+            json.dump({"rc": None, "launches": launch_counts()}, f)
+        rest = argv[argv.index("cova_tpu_torch.cli") + 1:]
+        real_execv(path, [path, os.path.abspath(__file__), "_cli_rank", out,
+                          *rest])
+
     zero_counts()
-    rc = cli.main(list(args))
+    with mock.patch.object(os, "execv", execv):
+        rc = cli.main(list(args))
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     with open(out, "w") as f:
@@ -1483,12 +1529,13 @@ def launch_ranks(cmds, tmp, name, cwd=ROOT):
     environment, each rank's output into ``tmp/<name>.rank<r>.log``; a
     failing rank stops the others, and so does PAR_TIMEOUT. Returns each
     rank's output."""
-    from cova_tpu_torch.parallel.launch import free_port, rank_env, wait_all
+    from cova_tpu_torch.parallel.launch import (
+        rank_env, rendezvous_store, wait_all)
 
-    port = free_port()
+    store = rendezvous_store()
     procs, logs = [], []
     for r, cmd in enumerate(cmds):
-        env = rank_env(r, len(cmds), port)
+        env = rank_env(r, len(cmds), store.port)
         env["COVA_DIST_INIT_TIMEOUT"] = str(PAR_TIMEOUT)
         logs.append(os.path.join(tmp, f"{name}.rank{r}.log"))
         with open(logs[-1], "w") as log:
@@ -1725,6 +1772,215 @@ def phase_parallel(torch, dev, tmp):
                    loss_rtol=PAR_LOSS_RTOL),
         nccl=nccl,
     )
+
+
+def bucket_boxes(torch, dev, b, p):
+    """Boxes and masks of b hard-mode pages of the corpus clone's kind at
+    CORPUS_IMG whose box counts fall in bucket p (above the next smaller
+    bucket, at most 230 as in the corpus), padded to p."""
+    import numpy as np
+
+    from cova_tpu_torch.data.records import pad_page
+    from cova_tpu_torch.data.synthetic import synth_record
+
+    lo = max([q for q in CORPUS_BUCKETS if q < p], default=10) + 1
+    pages = [pad_page(synth_record(str(i), CORPUS_IMG,
+                                   np.random.default_rng((SEED, p, i)),
+                                   min_boxes=lo, max_boxes=min(p, 230),
+                                   hard=True), p, CTX)
+             for i in range(b)]
+    boxes = torch.from_numpy(np.stack([q.boxes_xyxy for q in pages])).to(dev)
+    mask = torch.from_numpy(np.stack([q.box_mask for q in pages])).to(dev)
+    return boxes, mask
+
+
+def corpus_kernels(torch, dev):
+    """K1, K3, K5 and K6 at the corpus's 512^2 (map and pooled stem [b,
+    128, 128, 64], ys [b, 128, 128, 256]) against their plain versions, in
+    bf16 and f32: K1 and K5 bit-exact, K3 and K6 under the kernels phase's
+    rules (tied inputs; dfm and dys bit-exact, d(scale)/d(shift) within
+    rtol 1e-4 plus 1e-4 of their largest value), for every box bucket and
+    batch of CORPUS_BUCKETS x CORPUS_BATCHES; each with the plan its
+    wrapper chose and, in bf16 at the train batch, its ms."""
+    from cova_tpu_torch.ops.bn_pool import (
+        bn_relu_pool_s2d,
+        bn_relu_pool_s2d_reference,
+        bwd_plan,
+        fwd_plan,
+    )
+    from cova_tpu_torch.ops.roi_pool import (
+        roi_bwd_plan,
+        roi_pool,
+        roi_pool_backward,
+        roi_pool_backward_reference,
+        roi_pool_plan,
+        roi_pool_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    h = w = CORPUS_IMG // 4
+    checks = {}
+
+    def held(tag, got, want, plan, timed=None):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        need(err == 0.0, f"{tag} differs from its plain version by {err}")
+        checks[tag] = dict(max_abs_err=err, plan=plan)
+        if timed is not None:
+            checks[tag]["ms"] = cuda_ms(torch, timed, reps=20, warmup=3)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        isz = "bf16" if dtype == torch.bfloat16 else "f32"
+        for b in CORPUS_BATCHES:
+            time_it = b == TRAIN_B and dtype == torch.bfloat16
+            for p in CORPUS_BUCKETS if b == TRAIN_B else CORPUS_BUCKETS[-1:]:
+                boxes, mask = bucket_boxes(torch, dev, b, p)
+                fm = tied(torch, gen, (b, h, w, 64), dtype, dev, 2.0)
+                args = (fm, boxes, mask, 0.25)
+                got = roi_pool(*args)
+                want = roi_pool_reference(*args)
+                held(f"roi_pool_fwd_{b}x{h}x{w}_P{p}_{isz}", got, want,
+                     roi_pool_plan(dtype, b, p, h, w, 64, 3, 3)._asdict(),
+                     (lambda: roi_pool(*args)) if time_it else None)
+                g = torch.randn(want.shape, generator=gen,
+                                device=dev).to(dtype)
+                bargs = (fm, boxes, mask, want, g, 0.25)
+                held(f"roi_pool_bwd_{b}x{h}x{w}_P{p}_{isz}",
+                     roi_pool_backward(*bargs),
+                     roi_pool_backward_reference(*bargs),
+                     roi_bwd_plan(dtype, b, p, h, w, 64, 3, 3)._asdict(),
+                     (lambda: roi_pool_backward(*bargs)) if time_it
+                     else None)
+            ys = torch.randn(b, h, w, 256, generator=gen, device=dev).to(dtype)
+            scale = torch.rand(64, generator=gen, device=dev) + 0.5
+            shift = torch.randn(64, generator=gen, device=dev)
+            held(f"bn_relu_pool_fwd_{b}x{h}x{w}_{isz}",
+                 bn_relu_pool_s2d(ys, scale, shift),
+                 bn_relu_pool_s2d_reference(ys, scale, shift),
+                 fwd_plan(dtype, b, h, w, 64)._asdict(),
+                 (lambda: bn_relu_pool_s2d(ys, scale, shift)) if time_it
+                 else None)
+            tag = f"bn_relu_pool_bwd_{b}x{h}x{w}_{isz}"
+            _, checks[tag] = check_bn_pool_bwd(torch, gen, (b, h, w, 64),
+                                               dtype, dev, tag)
+            checks[tag]["plan"] = bwd_plan(dtype, b, h, w, 64)._asdict()
+    return checks
+
+
+def corpus_shapes(torch, dev, clone, page_ids):
+    """The shapes the model's forward gives K5 and K1 on a batch of the
+    clone at full width (recorded through call-through wrappers)."""
+    from cova_tpu_torch.config import Config
+    from cova_tpu_torch.data.batching import pad_batch
+    from cova_tpu_torch.data.dataset import WebDataset
+    from cova_tpu_torch.data.pipeline import make_eval_pipeline
+    from cova_tpu_torch.models import cova as cova_mod
+    from cova_tpu_torch.models import resnet as resnet_mod
+    from cova_tpu_torch.models.cova import build_model
+    from cova_tpu_torch.train.steps import forward_step
+
+    cfg = Config(img_height=CORPUS_IMG)
+    ds = WebDataset(clone, page_ids[:TRAIN_B], img_size=CORPUS_IMG)
+    _, batch = next(iter(make_eval_pipeline(cfg, ds).epoch(0)))
+    batch, _ = pad_batch(batch, TRAIN_B)
+    seen = {}
+
+    def recorded(name, fn):
+        def call(x, *args, **kw):
+            seen[name] = [list(x.shape)] + [
+                list(a.shape) for a in args[:1] if hasattr(a, "shape")]
+            return fn(x, *args, **kw)
+        return call
+
+    model = build_model(cfg, device=dev).eval()
+    with mock.patch.object(cova_mod, "roi_pool",
+                           recorded("roi_pool", cova_mod.roi_pool)), \
+            mock.patch.object(resnet_mod, "bn_relu_pool_s2d", recorded(
+                "bn_relu_pool_s2d", resnet_mod.bn_relu_pool_s2d)), \
+            torch.no_grad():
+        forward_step(model, batch)
+    torch.cuda.synchronize()
+    u = CORPUS_IMG // 4
+    need(seen.get("bn_relu_pool_s2d", [None])[0] == [TRAIN_B, u, u, 256],
+         f"K5's input at {CORPUS_IMG}^2: {seen}")
+    need(seen.get("roi_pool", [None])[0] == [TRAIN_B, u, u, 64],
+         f"K1's map at {CORPUS_IMG}^2: {seen}")
+    return seen
+
+
+def phase_corpus(torch, dev, tmp):
+    """Fold-1's protocol at the corpus clone's size, cut to prefixes of
+    its lists: the clone generated by ``scripts/make_corpus_clone_torch.py``
+    at 512^2, ``cli train -e 2`` at full width as a subprocess under
+    ``COVA_RSS_LIMIT_GB=0.001`` (the watchdog re-execs it once after epoch
+    1 and the new process resumes at epoch 2), then the kernels at these
+    shapes."""
+    import runpy
+
+    import numpy as np
+
+    from cova_tpu_torch.config import Config
+
+    script = os.path.join(ROOT, "scripts", "make_corpus_clone_torch.py")
+    splits, clone, out = (os.path.join(tmp, d)
+                          for d in ("splits", "clone", "results"))
+    ids = runpy.run_path(script)["fold_subset"](
+        os.path.join(ROOT, "splits"), splits, 1, *CORPUS_SPLIT)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, script, "--out", clone,
+                        "--img_height", str(CORPUS_IMG), "--splits", splits],
+                       capture_output=True, text=True, timeout=CORPUS_TIMEOUT)
+    need(r.returncode == 0, f"clone generation failed:\n{r.stdout}{r.stderr}")
+    clone_s = time.perf_counter() - t0
+    need(len(os.listdir(os.path.join(clone, "imgs"))) == len(ids),
+         "the clone lacks pages")
+
+    counts = os.path.join(tmp, "launches.json")
+    args = ["train", "--data_dir", clone, "--split_dir", splits, "-cvf", "1",
+            "--img_height", str(CORPUS_IMG), "--output_dir", out,
+            "--decode_cache", os.path.join(tmp, "decode_cache"), "-e", "2"]
+    t0 = time.perf_counter()
+    r = subprocess.run(rank_command(counts, args), cwd=ROOT,
+                       env=dict(os.environ, COVA_RSS_LIMIT_GB="0.001"),
+                       capture_output=True, text=True, timeout=CORPUS_TIMEOUT)
+    train_s = time.perf_counter() - t0
+    text = r.stdout + r.stderr
+    need(r.returncode == 0,
+         f"corpus train returned {r.returncode}:\n{text[-4000:]}")
+    need(text.count("[rss-watchdog]") == 1 and "after epoch 1" in text,
+         f"no single watchdog restart after epoch 1:\n{text[-4000:]}")
+    need(text.count("Resuming from epoch 2") == 1, "no resume at epoch 2")
+    epochs = re.findall(r"^Epoch:\s*(\d+)\s+Loss: ([\d.]+)", text, re.M)
+    losses = [float(x) for _, x in epochs]
+    need([e for e, _ in epochs] == ["1", "2"] and np.isfinite(losses).all(),
+         f"epoch lines {epochs}")
+    launches = {}
+    for part, path in (("before_restart", counts + ".exec"),
+                       ("after_restart", counts)):
+        with open(path) as f:
+            launches[part] = json.load(f)["launches"]
+        need(all(launches[part][k] > 0 for k in TRAIN_KERNELS),
+             f"a kernel was not launched {part}: {launches[part]}")
+        need(not (launches[part]["conv3x3_fwd"]
+                  or launches[part]["conv3x3_roll_fwd"]),
+             f"a conv kernel launched with the opt-in off: {launches[part]}")
+    res = os.path.join(out, Config(img_height=CORPUS_IMG).params_key)
+    for name in ("Fold-1 logs.txt", "Fold-1 test_acc_imgwise.csv",
+                 "Fold-1 test_acc_domainwise.csv", "fold_wise_acc.csv",
+                 "metrics.jsonl", "Fold-1 saved_model.pt/best.pt",
+                 "Fold-1 saved_model.pt/last.pt"):
+        need(os.path.isfile(os.path.join(res, name)),
+             f"the corpus train wrote no {name!r}")
+    with open(os.path.join(res, "Fold-1 test_acc_imgwise.csv")) as f:
+        n_test = len(f.readlines()) - 1
+    need(n_test == CORPUS_SPLIT[2], f"imgwise CSV has {n_test} pages")
+    test_line = [x for x in text.splitlines() if x.startswith("[TEST]")]
+    return dict(
+        pages=len(ids), split=list(CORPUS_SPLIT), img=CORPUS_IMG,
+        clone_s=clone_s, train_wall_s=train_s, epoch_losses=losses,
+        test=test_line, launches=launches,
+        shapes=corpus_shapes(torch, dev, clone, ids),
+        checks=corpus_kernels(torch, dev))
 
 
 def check_prefetcher(torch, dev, cfg):
@@ -2189,7 +2445,7 @@ def main() -> int:
     # Phase names as arguments run those phases alone (for work on one of
     # them); the summary and the ok line come only from a whole run.
     phases = ("kernels", "conv_kernels", "serve", "train", "bench",
-              "export", "visualize", "sweep", "parallel", "conv",
+              "export", "visualize", "sweep", "parallel", "corpus", "conv",
               "backbones")
     only = sys.argv[1:]
     need(all(p in phases for p in only), f"phases are {phases}")
@@ -2259,6 +2515,11 @@ def main() -> int:
         seconds()
         with tempfile.TemporaryDirectory() as tmp:
             emit({"phase": "parallel", **phase_parallel(torch, dev, tmp),
+                  "seconds": seconds()})
+    if wanted("corpus"):
+        seconds()
+        with tempfile.TemporaryDirectory() as tmp:
+            emit({"phase": "corpus", **phase_corpus(torch, dev, tmp),
                   "seconds": seconds()})
     if wanted("conv"):
         seconds()

@@ -325,6 +325,29 @@ def _log_header(cfg: Config, log_file: str) -> None:
     )
 
 
+def _rss_restart(args):
+    """The RSS watchdog's callback (``utils/rss.py``) for ``train``: re-exec
+    ``python -m cova_tpu_torch.cli`` with this run's arguments plus
+    ``--resume``. "last" was just saved and the dropout and shuffle streams
+    are keyed by (seed, epoch), so the new process continues the exact run.
+    None (no watchdog) on several ranks, which would have to recycle in
+    lockstep, and under ``sweep``, whose folds run in one process."""
+    from .parallel.distributed import is_multiprocess
+
+    if args.command != "train" or is_multiprocess():
+        return None
+    argv = [sys.executable, "-m", "cova_tpu_torch.cli", *args.argv]
+    if "--resume" not in argv:
+        argv.append("--resume")
+
+    def restart(epoch):
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os.execv(sys.executable, argv)
+
+    return restart
+
+
 def cmd_train(args) -> int:
     """Train one fold: log, checkpoints, metrics, then the test reports and
     the fold's row of ``fold_wise_acc.csv``."""
@@ -366,6 +389,7 @@ def cmd_train(args) -> int:
     state, val_acc = fit(
         state, cfg, train_p, val_p, ckpt, log_file, metrics,
         class_names=CLASS_NAMES, resume=args.resume,
+        on_rss_limit=_rss_restart(args),
     )
 
     prefix = os.path.join(cfg.results_dir, f"Fold-{cfg.cv_fold} ")
@@ -793,7 +817,9 @@ def main(argv: Optional[list] = None) -> int:
                         "the decoded-screenshot cache (steady-state epochs "
                         "are cache-warm)")
     b.set_defaults(fn=cmd_bench)
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
+    args.argv = argv
     if args.command not in MULTI_RANK:
         return args.fn(args)
     from .parallel import distributed
@@ -803,7 +829,7 @@ def main(argv: Optional[list] = None) -> int:
         if n > 1:
             from .parallel.launch import spawn
 
-            return spawn(sys.argv[1:] if argv is None else list(argv), n)
+            return spawn(argv, n)
     distributed.initialize(_device_name(args.device))
     try:
         return args.fn(args)

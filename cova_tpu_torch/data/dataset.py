@@ -152,9 +152,9 @@ def load_fold_ids(fold_dir: str):
     webpage_info is an [n, 2] str array of (img_id, domain) or None, and
     test_domains a str array or None.
     """
-    train = np.loadtxt(os.path.join(fold_dir, "train_imgs.txt"), str)
-    val = np.loadtxt(os.path.join(fold_dir, "val_imgs.txt"), str)
-    test = np.loadtxt(os.path.join(fold_dir, "test_imgs.txt"), str)
+    train, val, test = (
+        np.loadtxt(os.path.join(fold_dir, f"{name}_imgs.txt"), str, ndmin=1)
+        for name in ("train", "val", "test"))
 
     info_path = os.path.join(fold_dir, "webpage_info.csv")
     webpage_info = None
@@ -166,7 +166,7 @@ def load_fold_ids(fold_dir: str):
     dom_path = os.path.join(fold_dir, "test_domains.txt")
     test_domains = None
     if os.path.isfile(dom_path):
-        test_domains = np.loadtxt(dom_path, str)
+        test_domains = np.loadtxt(dom_path, str, ndmin=1)
 
     for a, b in ((train, val), (val, test), (train, test)):
         if np.intersect1d(a, b).size:

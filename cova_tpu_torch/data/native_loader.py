@@ -2,10 +2,16 @@
 (``native/cova_native.cpp``): PNG screenshot decode on a libpng + pthread
 pool, and bbox-CSV parsing.
 
-Counterpart of ``cova_tpu/data/native_loader.py``; it loads the same
-``native/libcova_native.so``. When the library has not been built
-(``make -C native``), ``available()`` is False and ``WebDataset`` decodes
-with PIL instead (same pixels).
+Counterpart of ``cova_tpu/data/native_loader.py``, with its own build: the
+port reads ``native/cova_native.cpp`` and writes nothing under ``native/``.
+``ensure_built`` compiles the source with the recipe of ``native/Makefile``
+into ``data/build/<hash>/libcova_native.so`` (the hash covers the source,
+the compiler and its flags; the directory is listed in ``.gitignore``) by
+the kernels' recipe (``ops/_build.py:compile_all``: a temporary file,
+renamed into place under a file lock, so processes that build at once
+never load half a file). Until a build exists,
+``available()`` is False and ``WebDataset`` decodes with PIL instead (same
+pixels).
 """
 
 from __future__ import annotations
@@ -16,15 +22,37 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..ops._build import OUT, compile_all, hashed_path
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+SOURCE = os.path.join(_ROOT, "native", "cova_native.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+CXXFLAGS = ("-O3", "-fPIC", "-shared", "-Wall")
+LDLIBS = ("-lpng", "-lpthread")
+
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_TRIED = False
 
 
-def _lib_path() -> str:
-    root = os.path.dirname(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    )
-    return os.path.join(root, "native", "libcova_native.so")
+def _cxx() -> str:
+    return os.environ.get("CXX", "g++")
+
+
+def lib_path() -> str:
+    """Where this source, compiler and flags build the library."""
+    return hashed_path(BUILD_DIR, "libcova_native.so",
+                       (_cxx(), *CXXFLAGS, *LDLIBS), [SOURCE])
+
+
+def build() -> str:
+    """Compile the library unless it exists; returns its path. Raises
+    ``RuntimeError`` with the compiler's output (``OSError`` without a
+    compiler)."""
+    out = lib_path()
+    compile_all({"cova_native": (
+        out, [_cxx(), *CXXFLAGS, "-o", OUT, SOURCE, *LDLIBS])})
+    return out
 
 
 def load_library(path: Optional[str] = None) -> Optional[ctypes.CDLL]:
@@ -36,7 +64,7 @@ def load_library(path: Optional[str] = None) -> Optional[ctypes.CDLL]:
         return None
     _LIB_TRIED = True
     try:
-        lib = ctypes.CDLL(path or _lib_path())
+        lib = ctypes.CDLL(path or lib_path())
     except OSError:
         return None
     try:
@@ -82,7 +110,7 @@ def decode_png(path: str, h: int, w: int) -> np.ndarray:
     """Decode one PNG to uint8 [h, w, 3] (zero-pad/crop to the target)."""
     lib = load_library()
     if lib is None:
-        raise RuntimeError("native library not built (make -C native)")
+        raise RuntimeError("native library not built (ensure_built())")
     out = np.empty((h, w, 3), dtype=np.uint8)
     rc = lib.cova_decode_png(
         path.encode(),
@@ -104,7 +132,7 @@ def decode_png_batch(
     layout [n, h/4, w/4, 48], rearranged in C right after each decode."""
     lib = load_library()
     if lib is None:
-        raise RuntimeError("native library not built (make -C native)")
+        raise RuntimeError("native library not built (ensure_built())")
     if s2d4 and (h % 4 or w % 4):
         raise ValueError(f"s2d4 requires h, w % 4 == 0, got ({h}, {w})")
     n = len(paths)
@@ -131,7 +159,7 @@ def parse_bbox_csv(path: str, max_rows: int = 4096) -> np.ndarray:
     """Parse a bbox CSV (header + rows x,y,w,h,label) -> float32 [n, 5]."""
     lib = load_library()
     if lib is None:
-        raise RuntimeError("native library not built (make -C native)")
+        raise RuntimeError("native library not built (ensure_built())")
     buf = np.empty((max_rows, 5), dtype=np.float32)
     n = lib.cova_parse_bbox_csv(
         path.encode(),
@@ -143,20 +171,13 @@ def parse_bbox_csv(path: str, max_rows: int = 4096) -> np.ndarray:
     return buf[:n].copy()
 
 
-def ensure_built(quiet: bool = True) -> bool:
-    """Build the library in-tree if a toolchain is available."""
+def ensure_built() -> bool:
+    """Build (once) and load the library if a toolchain is available."""
     if available():
         return True
-    import subprocess
-
-    native_dir = os.path.dirname(_lib_path())
     try:
-        subprocess.run(
-            ["make", "-C", native_dir],
-            check=True,
-            capture_output=quiet,
-        )
-    except (subprocess.CalledProcessError, FileNotFoundError):
+        build()
+    except (RuntimeError, OSError):
         return False
     global _LIB_TRIED
     _LIB_TRIED = False

@@ -7,7 +7,8 @@ is compiled by its own ``nvcc`` process, all started together, into
 ``csrc/build/<hash>/lib<name>.so``; the hash covers the source, the
 headers of ``csrc/`` (``hopper.cuh``) and the flags, so an edited source or
 header is rebuilt and an unchanged one is reused. The directory is listed
-in ``.gitignore``.
+in ``.gitignore``. ``hashed_path`` and ``compile_all`` are that recipe; the
+port's host library (``data/native_loader.py``) is built by it too.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -15,13 +16,14 @@ machine without ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
@@ -50,13 +52,69 @@ def _nvcc() -> str:
     )
 
 
+# Stands for the output file in a ``compile_all`` command.
+OUT = "{out}"
+
+
+def hashed_path(build_dir: str, name: str, flags: Sequence[str],
+                sources: Sequence[str]) -> str:
+    """``build_dir/<hash>/name``, the hash over ``flags`` and each source's
+    file name and bytes."""
+    key = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            key.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(build_dir, key.hexdigest()[:16], name)
+
+
+def _discard(path: str) -> None:
+    if os.path.exists(path):
+        os.remove(path)
+
+
+def compile_all(jobs: Dict[str, Tuple[str, Sequence[str]]]) -> Dict[str, str]:
+    """Build each ``{name: (out, command)}`` whose ``out`` is missing, one
+    compiler process each, all started together; ``OUT`` in a command
+    stands for its output file. Each writes a temporary file, renamed into
+    place under an flock on ``out + ".lock"``, so threads and processes
+    that build at once build each output once and never load half a file.
+    Returns {name: compiler output} for what it built; raises
+    ``RuntimeError`` with the output of each that failed."""
+    import fcntl
+
+    procs, reports, failed = {}, {}, []
+    with contextlib.ExitStack() as stack:
+        # One order for the locks, so two builders never wait on each other.
+        for name, (out, cmd) in sorted(jobs.items(), key=lambda j: j[1][0]):
+            if os.path.isfile(out):
+                continue
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            lock = stack.enter_context(open(out + ".lock", "w"))
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            if os.path.isfile(out):  # built while this one waited
+                continue
+            tmp = f"{out}.{os.getpid()}.tmp"
+            stack.callback(_discard, tmp)
+            procs[name] = (subprocess.Popen(
+                [tmp if a == OUT else a for a in cmd], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), tmp, out)
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"--- {name} (rc {proc.returncode})\n{log}")
+                continue
+            os.replace(tmp, out)
+            reports[name] = log
+    if failed:
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
+    return reports
+
+
 def _lib_path(name: str) -> str:
-    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for src in [f"{name}.cu", *headers]:
-        with open(os.path.join(CSRC, src), "rb") as f:
-            key.update(src.encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, key.hexdigest()[:16], f"lib{name}.so")
+    return hashed_path(BUILD_DIR, f"lib{name}.so", NVCC_FLAGS,
+                       [os.path.join(CSRC, f) for f in (f"{name}.cu",
+                                                         *headers)])
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
@@ -67,26 +125,10 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     if not todo:
         return {}
     nvcc = _nvcc()
-    procs = {}
-    for name in todo:
-        out = _lib_path(name)
-        os.makedirs(os.path.dirname(out), exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp, out)
-    reports, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- nvcc {name}.cu (rc {proc.returncode})\n{log}")
-            continue
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-        reports[name] = log
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return reports
+    return compile_all({
+        name: (_lib_path(name), [nvcc, *NVCC_FLAGS, "-o", OUT,
+                                 os.path.join(CSRC, f"{name}.cu")])
+        for name in todo})
 
 
 def library(name: str, bind) -> ctypes.CDLL:

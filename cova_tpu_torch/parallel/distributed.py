@@ -124,9 +124,12 @@ def initialize(
         torch.cuda.set_device(lr % torch.cuda.device_count())
     elif dev.type == "cuda":
         torch.cuda.set_device(dev)
-    else:
-        # CPU ranks of one host share its cores.
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_local))
+    elif n_local > 1 and "OMP_NUM_THREADS" not in os.environ:
+        # CPU ranks of one host take one intra-op thread each unless
+        # OMP_NUM_THREADS says otherwise (torchrun's rule): ranks meet at
+        # every collective, and a rank of several threads waits for its
+        # slowest, which crawls on a host whose cores are busy.
+        torch.set_num_threads(1)
     kwargs = {}
     if timeout is not None:
         kwargs["timeout"] = datetime.timedelta(seconds=timeout)

@@ -3,16 +3,17 @@
 ``python -m cova_tpu_torch.cli train --num_devices N`` (without a launch in
 the environment) calls ``spawn``: N processes of the same command, each
 given the launch contract of ``parallel/distributed.py``
-(``COVA_COORDINATOR_ADDRESS`` on a free localhost port,
-``COVA_NUM_PROCESSES``, ``COVA_PROCESS_ID``). The ranks share this
-process's stdout and stderr. If a rank fails, the others are stopped rather
-than left waiting on its collectives.
+(``COVA_COORDINATOR_ADDRESS``, ``COVA_NUM_PROCESSES``, ``COVA_PROCESS_ID``).
+The rendezvous store is hosted by the launching process on a port it binds
+itself (``rendezvous_store``), as ``torchrun``'s agent does, so no other
+process can take the port between its choice and the ranks' start. The
+ranks share this process's stdout and stderr. If a rank fails, the others
+are stopped rather than left waiting on its collectives.
 """
 
 from __future__ import annotations
 
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -22,22 +23,30 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def free_port() -> int:
-    """A TCP port on localhost that was free a moment ago."""
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+def rendezvous_store():
+    """A ``TCPStore`` server on a localhost port that it binds itself (port
+    0), hosted by this process: the ranks of ``rank_env(..., store.port)``
+    all join it as clients. Keep the object alive until they end."""
+    import torch.distributed as dist
+
+    return dist.TCPStore("localhost", 0, is_master=True,
+                         wait_for_workers=False)
 
 
 def rank_env(rank: int, world: int, port: int,
              base: Optional[Dict[str, str]] = None) -> Dict[str, str]:
     """The environment of rank ``rank`` of a ``world``-rank launch whose
-    rendezvous is localhost:``port`` (the package importable from it)."""
+    rendezvous store this process hosts on localhost:``port``
+    (``rendezvous_store``; the package importable from it).
+
+    ``TORCHELASTIC_USE_AGENT_STORE`` makes every rank a client of that
+    store, rank 0 included."""
     env = dict(os.environ if base is None else base)
     env.update(
         COVA_COORDINATOR_ADDRESS=f"localhost:{port}",
         COVA_NUM_PROCESSES=str(world),
         COVA_PROCESS_ID=str(rank),
+        TORCHELASTIC_USE_AGENT_STORE="True",
         PYTHONPATH=os.pathsep.join(
             p for p in (ROOT, env.get("PYTHONPATH", "")) if p),
     )
@@ -72,11 +81,11 @@ def wait_all(procs: List[subprocess.Popen],
 def spawn(argv: Sequence[str], n: int) -> int:
     """Run ``python -m cova_tpu_torch.cli *argv`` as ``n`` ranks on this
     host; returns 0 if every rank did, else the first failing code."""
-    port = free_port()
+    store = rendezvous_store()
     procs = [
         subprocess.Popen(
             [sys.executable, "-m", "cova_tpu_torch.cli", *argv],
-            env=rank_env(r, n, port),
+            env=rank_env(r, n, store.port),
         )
         for r in range(n)
     ]

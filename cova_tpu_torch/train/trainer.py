@@ -133,11 +133,19 @@ def fit(
     metrics: Optional[MetricsLogger] = None,
     class_names=("BG", "Price", "Title", "Image"),
     resume: bool = False,
+    on_rss_limit=None,
 ) -> Tuple[TrainState, float]:
     """Train with early stopping; returns (the state restored to its best
     checkpoint, the best val accuracy). On a mesh (``state.mesh``),
     ``train_pipeline`` is this rank's stripe (``make_pipelines(...,
-    host_shard=mesh.host_shard)``)."""
+    host_shard=mesh.host_shard)``).
+
+    ``on_rss_limit``: optional ``callback(epoch)`` fired at an epoch
+    boundary when host RSS exceeds ``utils.rss.rss_limit_gb()``, right
+    after the epoch's "last" checkpoint is saved and only while epochs
+    remain; a callback that re-execs the command with ``--resume``
+    (``cli.cmd_train``) continues the exact run, one that returns lets
+    training go on."""
     metrics = metrics or MetricsLogger(None)
     mesh = state.mesh
     data_group = mesh.data_group if mesh is not None else None
@@ -229,6 +237,18 @@ def fit(
         ckpt.save("last", state, bookkeeping(epoch))
         if stop:
             break
+        if on_rss_limit is not None and epoch < cfg.n_epochs:
+            from ..utils import rss
+
+            if rss.over_limit():
+                print_and_log(
+                    "[rss-watchdog] host RSS %.1f GB > limit %.1f GB after "
+                    "epoch %d — recycling the process (resume continues "
+                    "the exact stream from the just-saved checkpoint)"
+                    % (rss.rss_gb(), rss.rss_limit_gb(), epoch),
+                    log_file,
+                )
+                on_rss_limit(epoch)
 
     print_and_log("Model Trained! Restoring model to best Eval performance "
                   "checkpoint...", None)

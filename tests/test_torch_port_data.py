@@ -5,6 +5,7 @@ materialized pages read from disk (native decode and PIL)."""
 import numpy as np
 import pytest
 
+from cova_tpu.data import native_loader as jax_native_loader
 from cova_tpu.data import records as jax_records
 from cova_tpu.data.batching import bucket_batch as jax_bucket
 from cova_tpu.data.batching import pad_batch as jax_pad_batch
@@ -22,6 +23,15 @@ from cova_tpu_torch.data.synthetic import materialize as port_materialize
 
 PIPE = dict(batch_size=3, pad_boxes=24, context_size=3, seed=5,
             num_threads=2)
+
+
+def _native_or_skip():
+    """Build the port's native library (race-free) or skip where no C++
+    toolchain with libpng exists; the JAX package's decoder loads the same
+    build, so both sides decode natively."""
+    if not native_loader.ensure_built():
+        pytest.skip("no C++ toolchain with libpng for native/cova_native.cpp")
+    assert jax_native_loader.load_library(native_loader.lib_path())
 
 
 def _assert_same_epochs(port_pipe, jax_pipe, epochs=(0, 1)):
@@ -58,8 +68,8 @@ def disk_root(tmp_path_factory):
 
 @pytest.mark.parametrize("native", [True, False])
 def test_disk_batches_byte_identical(disk_root, native):
-    if native and not native_loader.available():
-        pytest.skip("native/libcova_native.so is not built here")
+    if native:
+        _native_or_skip()
     root, ids = disk_root
     kw = dict(use_additional_feats=True, img_size=32, use_native=native)
     port_ds = WebDataset(root, ids, **kw)

@@ -8,6 +8,7 @@ import os
 import numpy as np
 import pytest
 
+from cova_tpu.data import native_loader as jax_native_loader
 from cova_tpu.data.dataset import WebDataset as JaxWebDataset
 from cova_tpu.data.pipeline import DataPipeline as JaxPipeline
 from cova_tpu.data.synthetic import materialize
@@ -20,6 +21,15 @@ from cova_tpu_torch.data.synthetic import InMemoryWebDataset
 
 PIPE = dict(batch_size=2, pad_boxes=16, context_size=2, seed=5,
             num_threads=2)
+
+
+def _native_or_skip():
+    """Build the port's native library (race-free) or skip where no C++
+    toolchain with libpng exists; the JAX package's decoder loads the same
+    build, so both sides decode natively."""
+    if not native_loader.ensure_built():
+        pytest.skip("no C++ toolchain with libpng for native/cova_native.cpp")
+    assert jax_native_loader.load_library(native_loader.lib_path())
 
 
 def _entries(cache_dir):
@@ -43,8 +53,8 @@ def test_decode_cache_files_equal_the_jax_packages(pages, tmp_path, native):
     """One epoch of either package's pipeline over the same pages writes
     the same cache entries, name for name and byte for byte; a second epoch
     reads them back and yields the same batches."""
-    if native and not native_loader.available():
-        pytest.skip("the native decoder is not built")
+    if native:
+        _native_or_skip()
     root, ids = pages
     dirs = {k: str(tmp_path / k) for k in ("port", "jax")}
     port = DataPipeline(WebDataset(root, ids, img_size=32, use_native=native,

@@ -16,7 +16,10 @@ the looser second-epoch tolerance, as in the JAX package's tests).
 
 Every launch runs in its own session under a time limit, with
 ``COVA_DIST_INIT_TIMEOUT`` set, and the whole session is killed when the
-limit passes, so a hung rendezvous fails in seconds.
+limit passes, so a hung rendezvous fails in seconds. Before the kill, each
+Python process of the session prints its stack (``PYTHONFAULTHANDLER`` and
+SIGABRT), and the failure shows the last 40 lines of every command's
+output, so a run that outlasts the limit shows where each rank stood.
 """
 
 import os
@@ -24,12 +27,14 @@ import re
 import signal
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
+import torch
 
 from cova_tpu_torch.cli import main
-from cova_tpu_torch.parallel.launch import free_port, rank_env
+from cova_tpu_torch.parallel.launch import rank_env, rendezvous_store
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 240  # seconds for one launch, every rank included
@@ -44,6 +49,7 @@ ARGS = ["train", *FLAGS, "-e", "2"]
 def _env():
     env = dict(os.environ)
     env["COVA_DIST_INIT_TIMEOUT"] = INIT_TIMEOUT
+    env["PYTHONFAULTHANDLER"] = "1"
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (REPO, env.get("PYTHONPATH", "")) if p)
     for v in ("COVA_COORDINATOR_ADDRESS", "COVA_NUM_PROCESSES",
@@ -53,24 +59,47 @@ def _env():
 
 
 def _run_all(cmds, envs, cwd=REPO):
-    """Start every command in its own session, wait for all under TIMEOUT;
-    kill every session (ranks a command started included) if one outlasts
-    it. Returns [(returncode, output)]."""
+    """Start every command in its own session, wait for all under TIMEOUT
+    (one deadline for them all); if one outlasts it, dump the stacks of and
+    kill every session (ranks a command started included) and fail with
+    the end of every command's output. Returns [(returncode, output)]."""
     procs = [subprocess.Popen(cmd, env=env, cwd=cwd, text=True,
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT,
                               start_new_session=True)
              for cmd, env in zip(cmds, envs)]
-    outs = []
+    deadline = time.monotonic() + TIMEOUT
+    outs, late = [], False
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=TIMEOUT)[0])
+            left = max(0.1, deadline - time.monotonic())
+            outs.append(p.communicate(timeout=left)[0])
+    except subprocess.TimeoutExpired:
+        late = True
     finally:
         for p in procs:
             if p.poll() is None:
-                os.killpg(p.pid, signal.SIGKILL)
-                p.communicate()
+                _signal_session(p, signal.SIGABRT)
+                try:
+                    p.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    pass
+                _signal_session(p, signal.SIGKILL)
+    if late:
+        outs += [p.communicate()[0] for p in procs[len(outs):]]
+        tails = "\n".join(
+            f"--- command {i} (rc {p.returncode}), last 40 lines:\n"
+            + "\n".join(out.splitlines()[-40:])
+            for i, (p, out) in enumerate(zip(procs, outs)))
+        pytest.fail(f"a launch outlasted {TIMEOUT} s\n{tails}")
     return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def _signal_session(p, sig):
+    try:
+        os.killpg(p.pid, sig)
+    except ProcessLookupError:
+        pass
 
 
 def _cli(args, cwd=REPO):
@@ -96,9 +125,15 @@ def _epoch_losses(out):
 
 @pytest.fixture(scope="module")
 def single(tmp_path_factory):
-    """The one-process run of the same flags (in this process)."""
+    """The one-process run of the same flags (in this process, on one
+    thread as each rank: the suite's other workers keep the cores busy)."""
     out = str(tmp_path_factory.mktemp("mp_single"))
-    assert main(ARGS + ["--output_dir", out]) == 0
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert main(ARGS + ["--output_dir", out]) == 0
+    finally:
+        torch.set_num_threads(n)
     return out, _epoch_losses(out)[0]
 
 
@@ -137,11 +172,11 @@ def test_env_launch_matches_single(tmp_path, single):
     package's contract): rank 0 prints the epochs and logs the launch,
     rank 1 prints no ``Epoch:``; the losses equal the one-process run's."""
     out = str(tmp_path / "env2")
-    port = free_port()
+    store = rendezvous_store()
     cmd = [sys.executable, "-m", "cova_tpu_torch.cli", *ARGS,
            "--output_dir", out]
     results = _run_all([cmd, cmd],
-                       [rank_env(r, 2, port, _env()) for r in range(2)])
+                       [rank_env(r, 2, store.port, _env()) for r in range(2)])
     for r, (rc, text) in enumerate(results):
         assert rc == 0, f"rank {r}:\n{text}"
     (_, out0), (_, out1) = results

@@ -42,7 +42,10 @@ from cova_tpu_torch.data.batching import Batch  # noqa: E402
 from cova_tpu_torch.models.cova import build_model  # noqa: E402
 from cova_tpu_torch.models.layers import MaskedBatchNorm  # noqa: E402
 from cova_tpu_torch.parallel import collectives, distributed  # noqa: E402
-from cova_tpu_torch.parallel.launch import free_port, rank_env  # noqa: E402
+from cova_tpu_torch.parallel.launch import (  # noqa: E402
+    rank_env,
+    rendezvous_store,
+)
 from cova_tpu_torch.parallel.mesh import (  # noqa: E402
     full_state_dict,
     gather_optimizer_state,
@@ -70,10 +73,10 @@ def run_ranks(n, args, timeout=LAUNCH_TIMEOUT, extra_env=None):
     """``python *args`` as the n ranks of one launch; returns their
     outputs, and fails (after stopping every rank) if one fails or the
     launch outlasts ``timeout`` seconds."""
-    port = free_port()
+    store = rendezvous_store()
     procs = []
     for r in range(n):
-        env = rank_env(r, n, port)
+        env = rank_env(r, n, store.port)
         env["COVA_DIST_INIT_TIMEOUT"] = str(INIT_TIMEOUT)
         env.update(extra_env or {})
         procs.append(subprocess.Popen(
@@ -359,12 +362,12 @@ def step_runs(tmp_path_factory):
         (root / "spec.json").write_text(json.dumps(dict(
             config=STEP, layouts=[list(layout)], device="cpu", seed=0)))
         runs[layout] = dict(jax=jax_run, root=root)
-    port = free_port(), free_port()
+    stores = rendezvous_store(), rendezvous_store()
     procs = []
-    for (layout, run), p in zip(runs.items(), port):
+    for (layout, run), store in zip(runs.items(), stores):
         n = layout[0] * layout[1]
         for r in range(n):
-            env = rank_env(r, n, p)
+            env = rank_env(r, n, store.port)
             env["COVA_DIST_INIT_TIMEOUT"] = str(INIT_TIMEOUT)
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "cova_tpu_torch.parallel.step_check",
@@ -624,6 +627,42 @@ def test_initialize_refuses_an_incomplete_launch(fake_dist, monkeypatch):
     with pytest.raises(ValueError, match="outside a world of 2"):
         distributed.initialize("cpu")
     assert fake_dist == []
+
+
+@pytest.mark.parametrize("omp, n_local, want",
+                         [(None, None, [1]), ("3", None, []), (None, "1", [])])
+def test_initialize_leaves_a_set_thread_count(fake_dist, monkeypatch, omp,
+                                              n_local, want):
+    """CPU ranks of one host take one thread each (torchrun's rule),
+    unless ``OMP_NUM_THREADS`` is set, which torch has read; a host's only
+    rank keeps torch's default."""
+    calls = []
+    monkeypatch.setattr(torch, "set_num_threads", calls.append)
+    for name, value in (("OMP_NUM_THREADS", omp),
+                        ("LOCAL_WORLD_SIZE", n_local)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    distributed.initialize("cpu", "host0:1", num_processes=2, process_id=0)
+    assert calls == want and len(fake_dist) == 1
+
+
+def test_rank_env_joins_the_launchers_store(monkeypatch):
+    """Every rank is a client of the store the launching process hosts on
+    a port it bound itself; the thread count is left to ``initialize``."""
+    monkeypatch.delenv("OMP_NUM_THREADS", raising=False)
+    store = rendezvous_store()
+    assert store.port > 0
+    env = rank_env(1, 2, store.port)
+    assert env["COVA_COORDINATOR_ADDRESS"] == f"localhost:{store.port}"
+    assert (env["COVA_NUM_PROCESSES"], env["COVA_PROCESS_ID"]) == ("2", "1")
+    assert env["TORCHELASTIC_USE_AGENT_STORE"] == "True"
+    assert "OMP_NUM_THREADS" not in env
+    assert rank_env(0, 2, store.port, {"OMP_NUM_THREADS": "6"})[
+        "OMP_NUM_THREADS"] == "6"
+    # A second store binds another port while the first holds its own.
+    assert rendezvous_store().port != store.port
 
 
 def test_backend_choice():

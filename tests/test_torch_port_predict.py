@@ -81,12 +81,16 @@ def test_predict_matches_jax_cli(weights, tmp_path):
 
 
 def test_port_imports_no_jax_and_nothing_of_cova_tpu():
+    """Every module of the port, and the port's corpus clone generator,
+    import without JAX or the JAX package."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pkgutil, runpy, sys\n"
         "import cova_tpu_torch\n"
         "for m in pkgutil.walk_packages(cova_tpu_torch.__path__,"
         " 'cova_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "runpy.run_path('scripts/make_corpus_clone_torch.py')\n"
+        "assert 'cova_tpu_torch.utils.rss' in sys.modules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cova_tpu')]\n"
         "print(len([m for m in sys.modules"
@@ -97,7 +101,7 @@ def test_port_imports_no_jax_and_nothing_of_cova_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 34, r.stdout  # every module was imported
+    assert n_modules >= 35, r.stdout  # every module was imported
 
 
 def test_port_sources_name_no_jax_import():
@@ -118,6 +122,34 @@ def test_port_sources_name_no_jax_import():
     for path in files:
         with open(path) as f:
             assert not pat.search(f.read()), path
+
+
+def test_port_corpus_scripts_drive_only_the_port():
+    """The port's corpus scripts (``scripts/*_torch.*``) import nothing of
+    JAX or the JAX package and run only ``cova_tpu_torch`` and the
+    package-free ``corpus_oracle_summary.py``."""
+    import glob
+    import re
+
+    scripts = sorted(glob.glob(os.path.join(REPO, "scripts", "*_torch.*")))
+    names = [os.path.basename(p) for p in scripts]
+    for name in ("make_corpus_clone_torch.py", "corpus_fold_torch.sh",
+                 "corpus_protocol_torch.sh"):
+        assert name in names
+    jax_use = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|cova_tpu)\b"
+        r"|-m\s+cova_tpu\b(?!_torch)|\bcova_tpu\.(?!\w*_torch)\w", re.M)
+    for path in scripts:
+        with open(path) as f:
+            text = f.read()
+        code = "\n".join(line for line in text.splitlines()
+                         if not line.lstrip().startswith("#"))
+        if path.endswith(".py"):  # its docstring names the JAX script
+            code = code.split('"""', 2)[-1]
+        assert not jax_use.search(code), path
+    with open(os.path.join(REPO, "scripts", "corpus_oracle_summary.py")) as f:
+        imports = re.findall(r"^(?:import|from)\s+(\w+)", f.read(), re.M)
+    assert set(imports) <= {"argparse", "csv", "numpy", "os", "sys"}
 
 
 def test_default_device_refuses_to_run_without_cuda(weights, tmp_path):
