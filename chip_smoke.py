@@ -51,7 +51,10 @@ Phases, each printing one JSON line:
    checkpoint. Then one train step on a fixed batch is timed (ms per step,
    pages/s, peak device memory), and its gradients from one set of weights
    are compared with those of the plain (forward, backward) pairs, during
-   which no kernel may launch.
+   which no kernel may launch. The step also runs twice from one state and
+   one batch with the kernels: the line names the gradient tensors that
+   differ bit for bit, each with its largest relative difference (an
+   observation, not a check).
 
 6. conv_kernels: the two 3x3 conv kernels (input-stationary ``conv3x3``,
    output-stationary ``conv3x3_roll``) against the plain nine-product
@@ -139,11 +142,20 @@ Phases, each printing one JSON line:
    192, 232) at B = 5 and at a partial batch of one page, K3 and K6 under
    the kernels phase's rules, each with the plan its wrapper chose.
 
+15. profile: ``cli train -e 1`` on 10 synthetic pages at full width with
+   ``COVA_PROFILE_DIR`` set, the launch counts set to 0 before and read
+   after: the trainer's hook must write one trace, named for rank 0, in
+   which ``scripts/read_torch_trace.py`` finds K1 (``roi_pool_pyramid_kernel``
+   or ``roi_pool_bins_kernel``), K3 (``roi_pool_bwd_kernel``), K5 and K6
+   with device time; K3 and K6 as many times as their wrappers launched
+   them (the epoch's backward passes, all inside the trace). The line holds
+   the trace's device busy ms, idle share and device ms by category.
+
 The train phase also feeds batches through the device prefetcher and holds
 them against the host batches byte for byte. Every phase line carries its
 seconds.
 
-(Phases run in the order 1-3, 6, 4, 5, 9-14, 7, 8.) Then it prints the
+(Phases run in the order 1-3, 6, 4, 5, 9-15, 7, 8.) Then it prints the
 kernels' summary line (one row per TPU kernel, K1-K8), the ``nvidia-smi``
 line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without a GPU,
@@ -206,6 +218,9 @@ CORPUS_TIMEOUT = 600
 # The absolute term is for gradients that are zero but for rounding (a
 # Linear's bias feeding a BN), which only an absolute scale can judge.
 GRAD_RTOL, GRAD_ATOL = 2e-2, 1e-6
+# The profile phase: one epoch of `cli train` at full width on 10 pages (a
+# 6/2/2 split, two steps) under the trainer's COVA_PROFILE_DIR hook.
+PROFILE_PAGES = 10
 
 
 def need(cond, msg: str) -> None:
@@ -1145,6 +1160,21 @@ def grad_diff(a, b):
                 max_rel_diff=rel)
 
 
+def grads_not_bit_equal(torch, a, b):
+    """The f32 gradient tensors of ``a`` whose bits differ from ``b``'s,
+    each with its largest difference relative to the tensor's largest
+    gradient and the number of elements that differ."""
+    out = {}
+    for k in b:
+        ai, bi = a[k].view(torch.int32), b[k].view(torch.int32)
+        if not torch.equal(ai, bi):
+            top = float(b[k].abs().max())
+            d = float((a[k] - b[k]).abs().max())
+            out[k] = {"max_rel_diff": d / top if top else d,
+                      "elements": int((ai != bi).sum())}
+    return out
+
+
 def grad_element_share(a, b, rel=1e-3):
     """The share of all gradient elements of ``a`` farther from ``b`` than
     ``rel`` of their tensor's largest gradient (plus GRAD_ATOL of the
@@ -1274,6 +1304,12 @@ def phase_train(torch, dev, tmp):
         loss_kernel=loss_k, loss_plain=loss_p, loss_abs_diff=loss_diff,
         grad_vs_plain=vs_plain,
         grad_kernel_rerun=grad_diff(grads_k2, grads_k),
+        # An observation, not a check: the tensors whose gradients two runs
+        # of one step from one state and one batch do not give bit for bit.
+        loss_rerun_bit_equal=loss_k2 == loss_k,
+        grad_rerun_not_bit_equal=grads_not_bit_equal(torch, grads_k2,
+                                                      grads_k),
+        grad_tensors=len(grads_k),
         grad_rtol=GRAD_RTOL, grad_atol=GRAD_ATOL, plain_step_s=plain_s,
         prefetcher=prefetch,
     )
@@ -1983,6 +2019,54 @@ def phase_corpus(torch, dev, tmp):
         checks=corpus_kernels(torch, dev))
 
 
+def phase_profile(torch, dev, tmp):
+    """``cli train -e 1`` with ``COVA_PROFILE_DIR`` set: one trace, named
+    for rank 0, that names K1, K3, K5 and K6 with device time."""
+    import runpy
+
+    from cova_tpu_torch import cli
+
+    trace_dir = os.path.join(tmp, "trace")
+    zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {"COVA_PROFILE_DIR": trace_dir}):
+        rc = cli.main(["train", "--synthetic", str(PROFILE_PAGES),
+                       "--img_height", str(IMG), "-e", "1",
+                       "--output_dir", os.path.join(tmp, "results")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    need(rc == 0, f"profiled train returned {rc}")
+    files = os.listdir(trace_dir) if os.path.isdir(trace_dir) else []
+    need(len(files) == 1 and files[0].startswith("rank0.")
+         and files[0].endswith(".pt.trace.json.gz"),
+         f"the hook wrote {files}, not one rank-0 trace")
+    trace = runpy.run_path(os.path.join(ROOT, "scripts",
+                                        "read_torch_trace.py"))["read_trace"](
+        os.path.join(trace_dir, files[0]))
+    seen = trace["port_kernels"]
+    k1 = [k for k in ("roi_pool_pyramid_kernel", "roi_pool_bins_kernel")
+          if k in seen]
+    for name in k1[:1] + ["roi_pool_bwd_kernel", "bn_relu_pool_fwd_kernel",
+                          "bn_relu_pool_bwd_kernel"]:
+        need(seen.get(name, {}).get("ms", 0) > 0,
+             f"the trace shows no device time of {name}: {seen}")
+    need(bool(k1), f"the trace shows no K1 kernel: {seen}")
+    for name, wrapper in (("roi_pool_bwd_kernel", "roi_pool_bwd"),
+                          ("bn_relu_pool_bwd_kernel", "bn_relu_pool_bwd")):
+        need(seen[name]["launches"] == launches[wrapper],
+             f"{name}: {seen[name]['launches']} in the trace, "
+             f"{launches[wrapper]} launched")
+    return launches, dict(
+        train_wall_s=wall, pages=PROFILE_PAGES, trace=files[0],
+        trace_bytes=os.path.getsize(os.path.join(trace_dir, files[0])),
+        steps=trace["steps"], window_ms=trace["window_ms"],
+        device_busy_ms=trace["device_busy_ms"],
+        idle_share=trace["idle_share"],
+        device_ms_by_category=trace["device_ms_by_category"],
+        port_kernels=seen)
+
+
 def check_prefetcher(torch, dev, cfg):
     """The trainer's path to the device: every prefetched batch equals its
     host batch byte for byte, and a first train step fed by the prefetcher
@@ -2445,8 +2529,8 @@ def main() -> int:
     # Phase names as arguments run those phases alone (for work on one of
     # them); the summary and the ok line come only from a whole run.
     phases = ("kernels", "conv_kernels", "serve", "train", "bench",
-              "export", "visualize", "sweep", "parallel", "corpus", "conv",
-              "backbones")
+              "export", "visualize", "sweep", "parallel", "corpus",
+              "profile", "conv", "backbones")
     only = sys.argv[1:]
     need(all(p in phases for p in only), f"phases are {phases}")
 
@@ -2521,6 +2605,12 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             emit({"phase": "corpus", **phase_corpus(torch, dev, tmp),
                   "seconds": seconds()})
+    if wanted("profile"):
+        seconds()
+        with tempfile.TemporaryDirectory() as tmp:
+            profile_launches, profile = phase_profile(torch, dev, tmp)
+        emit({"phase": "profile", "seconds": seconds(),
+              "launches": profile_launches, **profile})
     if wanted("conv"):
         seconds()
         with tempfile.TemporaryDirectory() as tmp:

@@ -9,6 +9,8 @@ has a plain PyTorch version beside it, which is what
 runs for tensors on the CPU.
 
     from cova_tpu_torch import Config, build_model
+    from cova_tpu_torch.data import WebDataset, DataPipeline, make_pipelines
+    from cova_tpu_torch.train import fit, evaluate, predict_pages
     from cova_tpu_torch.cli import main   # main(["train", ...]), as `cova`'s
     from cova_tpu_torch.benchmarks import run_train_bench, run_infer_bench
 """

@@ -21,12 +21,21 @@ sums of loss, correct and box counts are summed over the data group; eval
 pads each batch to a multiple of the data degree, each data rank runs its
 rows, and the per-page flags are assembled on every rank.
 
-Eval runs one batch per call. The JAX package's RSS watchdog, VMEM
-fallback and eval chunking have no counterpart here.
+``COVA_PROFILE_DIR``, as in the JAX package, traces the first epoch that a
+call of ``fit`` runs (``start_epoch``, so also the first after ``--resume``)
+with ``torch.profiler``: the trace starts before the epoch's step loop and
+stops after its last step, before the epoch's metrics are fetched and before
+eval. Each rank writes ``<dir>/rank<r>.<ns>.pt.trace.json.gz``, which
+TensorBoard's profiler plugin and Perfetto open. That epoch's seconds
+include the profiler's overhead. The hook touches no RNG, batch or step.
+
+Eval runs one batch per call. The JAX package's VMEM fallback and eval
+chunking have no counterpart here.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional, Sequence, Tuple
 
@@ -36,6 +45,7 @@ import torch
 from ..data.batching import Batch, bucket_batch, pad_batch
 from ..data.device_prefetch import device_prefetch
 from ..parallel.collectives import all_reduce_
+from ..parallel.distributed import rank
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import MetricsLogger, print_and_log
 from .steps import TrainState, eval_step, train_step
@@ -49,6 +59,21 @@ def dropout_generator(seed: int, epoch: int, device,
     entropy = [seed, epoch] + ([data_rank] if data_rank else [])
     key = int(np.random.SeedSequence(entropy).generate_state(1)[0])
     return torch.Generator(device=device).manual_seed(key)
+
+
+def epoch_profiler(profile_dir: str, device):
+    """A started ``torch.profiler`` that traces the host, and the card when
+    ``device`` is CUDA, into this rank's gzipped Chrome trace in
+    ``profile_dir`` when it is stopped."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(
+        activities=acts,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(
+            profile_dir, worker_name=f"rank{rank()}", use_gzip=True))
+    prof.start()
+    return prof
 
 
 def run_eval(
@@ -169,6 +194,7 @@ def fit(
             log_file,
         )
 
+    profile_dir = os.environ.get("COVA_PROFILE_DIR")
     print_and_log("Training Model for %d epochs..." % cfg.n_epochs, None)
     buckets = tuple(cfg.box_buckets)
     stop = False
@@ -189,10 +215,16 @@ def fit(
                              if global_max is not None else 0)))
             for i, (ids, batch) in enumerate(train_pipeline.epoch(epoch))
         )
-        for _, _, on_device in device_prefetch(padded, state.device):
-            m = train_step(state, on_device, gen)
-            step_metrics.append(torch.stack(
-                [m["loss_sum"], m["n_correct"], m["n_boxes"]]))
+        prof = (epoch_profiler(profile_dir, state.device)
+                if profile_dir and epoch == start_epoch else None)
+        try:
+            for _, _, on_device in device_prefetch(padded, state.device):
+                m = train_step(state, on_device, gen)
+                step_metrics.append(torch.stack(
+                    [m["loss_sum"], m["n_correct"], m["n_boxes"]]))
+        finally:
+            if prof is not None:
+                prof.stop()
         # One device-to-host fetch per epoch (after one all-reduce of the
         # three sums over the data group).
         loss_sum, n_correct, n_boxes = all_reduce_(

@@ -8,9 +8,10 @@
 #   1. each fold through scripts/corpus_fold_torch.sh (train with relaunch
 #      and RSS samples; the verbatim splits/Fold-k lists, the 408-domain
 #      macro report);
-#   2. `cli eval` of Fold-1's best checkpoint, reports in $OUT/eval_fold1/;
-#   3. `cli visualize --max_pages 3` from Fold-1; one attention CSV and PNG
-#      are copied to $OUT/attn_corpus_page.{csv,png};
+#   2. when 1 is among the folds, `cli eval` of Fold-1's best checkpoint,
+#      reports in $OUT/eval_fold1/;
+#   3. then `cli visualize --max_pages 3` from Fold-1; one attention CSV and
+#      PNG are copied to $OUT/attn_corpus_page.{csv,png};
 #   4. the per-fold Bayes-oracle band (scripts/corpus_oracle_summary.py);
 #   5. the published-table aggregation over the folds that have rows.
 #
@@ -46,33 +47,37 @@ for f in $FOLDS; do
   s=${PIPESTATUS[0]}; rc=$((rc | s)); echo "rc=$s done fold$f"
 done
 
-echo "=== Fold-1 eval of the best checkpoint (cli eval) ==="
-# eval writes its reports into its working directory.
-mkdir -p "$OUT/eval_fold1"
-ABS=(--data_dir "$(cd "$CLONE" && pwd)" --split_dir "$(cd "$SPLITS" && pwd)"
-     --output_dir "$(cd "$OUT" && pwd)")
-# shellcheck disable=SC2086
-(cd "$OUT/eval_fold1" && python -m cova_tpu_torch.cli eval "${ABS[@]}" \
-   -cvf 1 --img_height "$IMGH" --device "$DEVICE" ${TRAIN_ARGS:-}) 2>&1 \
-  | tee "$OUT/eval_fold1_console.log" | tail -15
-echo "rc=${PIPESTATUS[0]} done eval"
+# Fold-1's checkpoint exists only where this call trained Fold-1: a call for
+# other folds leaves Fold-1's eval and visualize reports as they are.
+if [[ " $FOLDS " == *" 1 "* ]]; then
+  echo "=== Fold-1 eval of the best checkpoint (cli eval) ==="
+  # eval writes its reports into its working directory.
+  mkdir -p "$OUT/eval_fold1"
+  ABS=(--data_dir "$(cd "$CLONE" && pwd)" --split_dir "$(cd "$SPLITS" && pwd)"
+       --output_dir "$(cd "$OUT" && pwd)")
+  # shellcheck disable=SC2086
+  (cd "$OUT/eval_fold1" && python -m cova_tpu_torch.cli eval "${ABS[@]}" \
+     -cvf 1 --img_height "$IMGH" --device "$DEVICE" ${TRAIN_ARGS:-}) 2>&1 \
+    | tee "$OUT/eval_fold1_console.log" | tail -15
+  echo "rc=${PIPESTATUS[0]} done eval"
 
-echo "=== Fold-1 attention visualization (cli visualize, 3 pages) ==="
-# The overlays need matplotlib; without it only the attention CSVs are
-# written (render them elsewhere: utils/visualize.py:visualize_bbox).
-RENDER=""
-python -c "import matplotlib" 2> /dev/null || RENDER=--no_render
-# shellcheck disable=SC2086
-python -m cova_tpu_torch.cli visualize --data_dir "$CLONE" \
-  --split_dir "$SPLITS" -cvf 1 --img_height "$IMGH" --device "$DEVICE" \
-  --output_dir "$OUT" --max_pages 3 $RENDER ${TRAIN_ARGS:-} 2>&1 \
-  | tee "$OUT/visualize_console.log" | tail -15
-echo "rc=${PIPESTATUS[0]} done visualize"
-VIZ=$(ls -d "$OUT"/*/"Fold-1 attention visualization" 2> /dev/null | head -1)
-if [ -n "$VIZ" ]; then
-  cp "$(ls "$VIZ"/*.csv | head -1)" "$OUT/attn_corpus_page.csv"
-  PNG=$(ls "$VIZ"/*.png 2> /dev/null | head -1)
-  [ -n "$PNG" ] && cp "$PNG" "$OUT/attn_corpus_page.png"
+  echo "=== Fold-1 attention visualization (cli visualize, 3 pages) ==="
+  # The overlays need matplotlib; without it only the attention CSVs are
+  # written (render them elsewhere: utils/visualize.py:visualize_bbox).
+  RENDER=""
+  python -c "import matplotlib" 2> /dev/null || RENDER=--no_render
+  # shellcheck disable=SC2086
+  python -m cova_tpu_torch.cli visualize --data_dir "$CLONE" \
+    --split_dir "$SPLITS" -cvf 1 --img_height "$IMGH" --device "$DEVICE" \
+    --output_dir "$OUT" --max_pages 3 $RENDER ${TRAIN_ARGS:-} 2>&1 \
+    | tee "$OUT/visualize_console.log" | tail -15
+  echo "rc=${PIPESTATUS[0]} done visualize"
+  VIZ=$(ls -d "$OUT"/*/"Fold-1 attention visualization" 2> /dev/null | head -1)
+  if [ -n "$VIZ" ]; then
+    cp "$(ls "$VIZ"/*.csv | head -1)" "$OUT/attn_corpus_page.csv"
+    PNG=$(ls "$VIZ"/*.png 2> /dev/null | head -1)
+    [ -n "$PNG" ] && cp "$PNG" "$OUT/attn_corpus_page.png"
+  fi
 fi
 
 echo "=== per-fold Bayes-oracle ceilings over the verbatim test lists ==="

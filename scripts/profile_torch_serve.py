@@ -60,6 +60,18 @@ def category(name: str) -> str:
     return "elementwise / other"
 
 
+def union(spans):
+    """The (start, end) intervals ``spans`` merged into disjoint ones, in
+    order: the device's busy time is their total length."""
+    merged = []
+    for s, e in sorted(spans):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return merged
+
+
 def main() -> int:
     import torch
     from torch.autograd import DeviceType
@@ -151,15 +163,8 @@ def main() -> int:
         print("profile_torch_serve: the trace holds no device events",
               file=sys.stderr)
         return 1
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy_us, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy_us += cur_e - cur_s
+    busy_us = sum(e - s for s, e in union(
+        (e.time_range.start, e.time_range.end) for e in events))
     by_cat, by_name = {}, {}
     for e in events:
         us = e.time_range.elapsed_us()

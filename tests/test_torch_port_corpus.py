@@ -273,3 +273,42 @@ def test_fold_lists_of_any_length_load(tmp_path, n):
     if n > 1:
         for a, b in zip(got, jax_load(str(tmp_path / "Fold-1"))):
             np.testing.assert_array_equal(a, b)
+
+
+def test_protocol_for_other_folds_keeps_fold1_reports(tmp_path):
+    """``scripts/corpus_protocol_torch.sh 2`` on the CPU (a 64 px clone of
+    prefixes of the real Fold-2 lists, the README's TRAIN_ARGS) trains
+    Fold-2 and adds its row to ``fold_wise_acc.csv``; Fold-1's eval and
+    visualize reports of an earlier call, whose checkpoint a fresh checkout
+    lacks, stay as they were, byte for byte."""
+    splits, clone, out = (str(tmp_path / d)
+                          for d in ("splits", "clone", "out"))
+    sub = runpy.run_path(os.path.join(REPO, "scripts", PORT_SCRIPT))[
+        "fold_subset"]
+    sub(os.path.join(REPO, "splits"), splits, 2, 12, 4, 4)
+    os.makedirs(out)
+    planted = {}
+    for name in ("eval_fold1_console.log", "visualize_console.log"):
+        planted[name] = f"{name} of an earlier Fold-1 call\n".encode()
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(planted[name])
+    env = dict(os.environ, SPLITS=splits, CLONE=clone, OUT=out, IMGH="64",
+               DEVICE="cpu", TMPDIR=str(tmp_path),
+               TRAIN_ARGS="-e 2 -cs 3 -hd 32 -bbhd 8 --compute_dtype "
+                          "float32 -nw 2")
+    r = subprocess.run(
+        ["bash", os.path.join(REPO, "scripts", "corpus_protocol_torch.sh"),
+         "2"], env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
+    assert "rc=0 done fold2" in r.stdout
+    assert "Fold-1 eval" not in r.stdout
+    for name, data in planted.items():
+        with open(os.path.join(out, name), "rb") as f:
+            assert f.read() == data, name
+    assert not os.path.exists(os.path.join(out, "eval_fold1"))
+    with open(os.path.join(out, KEY, "fold_wise_acc.csv")) as f:
+        rows = f.read().splitlines()
+    assert rows[0].startswith("Fold,val_avg,")
+    assert [r.split(",")[0] for r in rows[1:]] == ["2"]
+    with open(os.path.join(out, KEY, "sweep_summary.txt")) as f:
+        assert f.readline().strip() == "folds: [2]"
