@@ -151,11 +151,51 @@ Phases, each printing one JSON line:
    them (the epoch's backward passes, all inside the trace). The line holds
    the trace's device busy ms, idle share and device ms by category.
 
+16. graphs: the step graphs (``train/graphs.py``) at full width (1280^2,
+   P = 232, -cs 12, -hd 384, -bbhd 32, bf16). (a) From one state, 8 train
+   steps at B = 5 alternating P = 128 and 232, the dropout generator
+   re-seeded after the 4th (an epoch boundary), eagerly five times and
+   through graphs: the first loss the same bits, each later loss within
+   GRAD_RTOL of the eager one or 1.5 times the eager runs' spread (Adam
+   amplifies the card's atomics from step to step), the parameters and BN
+   buffers after step 8 within the train phase's gradient rule or 1.5
+   times the farthest eager run's distance (Adam's moments reported);
+   then through graphs again with each step started from the
+   first eager run's state and generator position before it: every loss
+   the same bits, the generator where the eager run's was, and the last
+   step's state within the gradient rule; Adam's step count and every
+   ``num_batches_tracked`` 8. (a) and (b) run under deterministic
+   algorithms (``warn_only``; the ops that have none are listed) and
+   cuDNN's deterministic convolutions, so that the atomics' order, which
+   differs between eager runs and replays, does not set the spread; where
+   the eager runs then agree bit for bit, the graphs' run must equal them
+   in every loss and every tensor of the state.
+   (b) The P = 232 train graph replayed 3 times
+   from one state (parameters, Adam state and BN buffers put back in
+   place), each loss the same bits as the eager step from that state at
+   that generator position, the three losses different (the masks move).
+   (c) The eval and forward graphs at P = 64, 128, 192 and 232, at B = 10
+   and for a padded partial batch of 3 pages: correct and present flags,
+   logits and attention weights the same bits as the eager steps'. (d) The
+   launch counters after (a) and (c) equal the eager runs'. (e) Paired
+   timings on the host clock (eager, graphs, graphs, eager, each on a fresh
+   model): the train step at 1280^2 B = 5 and 8 and at 512^2 B = 5, the
+   forward at B = 10 (staged and from host arrays) and 32: ms a step, CUDA
+   events ms a step, the first two calls' seconds (the eager step and the
+   capture), device busy ms under the profiler, peak allocated and reserved
+   bytes, graphs held and capture seconds; printed, not checked. Checked:
+   in each side's profiled calls, the trace's launches of K1's bins kernel,
+   K5, K3 and K6 (through graphs: inside the replays) equal what the
+   counters added, and each of the step's kernels was launched. The other
+   phases run through graphs wherever the CLI runs on one card; a step
+   under ``plain_ops()`` and a forward whose hooks must fire run with
+   ``graphs=False``, and ``parallel`` stays eager (a mesh).
+
 The train phase also feeds batches through the device prefetcher and holds
 them against the host batches byte for byte. Every phase line carries its
 seconds.
 
-(Phases run in the order 1-3, 6, 4, 5, 9-15, 7, 8.) Then it prints the
+(Phases run in the order 1-3, 6, 4, 5, 9-16, 7, 8.) Then it prints the
 kernels' summary line (one row per TPU kernel, K1-K8), the ``nvidia-smi``
 line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without a GPU,
@@ -941,25 +981,43 @@ def phase_conv_kernels(torch, dev):
     return results, checks
 
 
-def kernel_wrappers():
-    """Every kernel wrapper that counts its launches, by kernel name."""
-    from cova_tpu_torch.ops import bn_pool, conv3x3, roi_pool
-
-    return {"roi_pool_fwd": roi_pool.roi_pool,
-            "bn_relu_pool_fwd": bn_pool.bn_relu_pool_s2d,
-            "roi_pool_bwd": roi_pool.roi_pool_backward,
-            "bn_relu_pool_bwd": bn_pool.bn_relu_pool_s2d_backward,
-            "conv3x3_fwd": conv3x3.conv3x3,
-            "conv3x3_roll_fwd": conv3x3.conv3x3_roll}
-
-
 def launch_counts():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Each kernel wrapper's launch count (``ops/launches.py``; a step
+    graph's replay adds the counts its capture recorded)."""
+    from cova_tpu_torch.ops import launches
+
+    return launches.counts()
 
 
 def zero_counts() -> None:
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    from cova_tpu_torch.ops import launches
+
+    launches.zero()
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """Deterministic algorithms inside (``warn_only``: an op that has none
+    warns and runs as it would) and cuDNN's deterministic convolutions.
+    Yields a list that names, on the way out, each op that had none."""
+    import warnings
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic)
+    ops = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            yield ops
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+            torch.backends.cudnn.deterministic = was[2]
+            ops.extend(sorted({
+                str(w.message).split(" does not have")[0] for w in caught
+                if "deterministic implementation" in str(w.message)}))
 
 
 @contextlib.contextmanager
@@ -967,7 +1025,8 @@ def plain_ops():
     """The model's kernel ops swapped for their plain (forward, backward)
     pairs, with the conv opt-in off; fails unless no kernel launched
     meanwhile, so a moved call site cannot make the plain run compare the
-    kernels with themselves."""
+    kernels with themselves (a step inside runs with ``graphs=False``: a
+    graph captured with the kernels would replay them)."""
     from cova_tpu_torch.models import cova as cova_mod
     from cova_tpu_torch.models import resnet as resnet_mod
     from cova_tpu_torch.ops.bn_pool import bn_relu_pool_s2d_plain
@@ -1070,6 +1129,7 @@ def phase_serve(torch, dev, tmp):
     batch, _ = pad_batch(batch, B)
     need(batch.boxes.shape[1] == P, f"batch has P={batch.boxes.shape[1]}")
     out = forward_step(model, batch)
+    forward_step(model, batch)  # captures the batch's graph
     torch.cuda.synchronize()
     reps = 10
     t0 = time.perf_counter()
@@ -1077,9 +1137,14 @@ def phase_serve(torch, dev, tmp):
         forward_step(model, batch)
     torch.cuda.synchronize()
     ms_batch = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()  # the same batches eagerly, beside it
+    for _ in range(reps):
+        forward_step(model, batch, graphs=False)
+    torch.cuda.synchronize()
+    ms_batch_eager = (time.perf_counter() - t0) / reps * 1e3
     with plain_ops():
         t0 = time.perf_counter()
-        plain = forward_step(model, batch)
+        plain = forward_step(model, batch, graphs=False)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
     mask = torch.from_numpy(batch.box_mask).to(dev)
@@ -1097,6 +1162,7 @@ def phase_serve(torch, dev, tmp):
     need(agree == 1.0, f"retrieval picks agree on {agree:.1%} only")
     return launches, dict(
         predict_wall_s=wall, pages=MAX_PAGES, ms_per_batch=ms_batch,
+        ms_per_batch_eager=ms_batch_eager,
         pages_per_s=B / (ms_batch / 1e3), batch=B, P=P,
         plain_ops_batch_s=plain_s, logits_max_abs_diff_vs_plain=diff,
         pick_agreement=agree, n_boxes_valid=int(np.asarray(
@@ -1261,16 +1327,19 @@ def phase_train(torch, dev, tmp):
 
     prefetch = check_prefetcher(torch, dev, cfg)
 
-    # One train step on a fixed batch, timed; peak memory over the window.
+    # One train step on a fixed batch, timed; peak memory from its first step.
     batch = fixed_train_batch(cfg)
     need(batch.boxes.shape[1] == P, f"train batch has P={batch.boxes.shape[1]}")
     state = create_train_state(build_model(cfg, device=dev), cfg)
     sd = {k: v.clone() for k, v in state.model.state_dict().items()}
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    # Over the eager step and the capture too: a replay allocates only its
+    # copies (its working memory is the graph's pool).
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         train_step(state, batch, gen)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reps = 10
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -1374,7 +1443,7 @@ def phase_bench(torch, dev):
     model = build_model(cfg, device=dev)
     logits = forward_step(model, batch).logits
     with plain_ops():
-        plain = forward_step(model, batch).logits
+        plain = forward_step(model, batch, graphs=False).logits
     infer_vs_plain = compare_logits(torch, dev, batch, logits, plain,
                                     CONV_LOGIT_STEPS, "infer bench batch")
     del model, logits, plain
@@ -1934,7 +2003,7 @@ def corpus_shapes(torch, dev, clone, page_ids):
             mock.patch.object(resnet_mod, "bn_relu_pool_s2d", recorded(
                 "bn_relu_pool_s2d", resnet_mod.bn_relu_pool_s2d)), \
             torch.no_grad():
-        forward_step(model, batch)
+        forward_step(model, batch, graphs=False)
     torch.cuda.synchronize()
     u = CORPUS_IMG // 4
     need(seen.get("bn_relu_pool_s2d", [None])[0] == [TRAIN_B, u, u, 256],
@@ -2067,6 +2136,486 @@ def phase_profile(torch, dev, tmp):
         port_kernels=seen)
 
 
+# The graphs phase. (a): 8 train steps alternating two box buckets, the
+# generator re-seeded after the 4th (an epoch boundary); (b): 3 replays of
+# one train graph; (c): the eval and forward graphs at every bucket; (e):
+# paired timings, GRAPH_REPS steps a side after the warm-up and capture.
+GRAPH_STEPS, GRAPH_EPOCH = 8, 4
+GRAPH_EAGER_RUNS = 5
+GRAPH_TRAIN_P = (128, P)
+GRAPH_REPLAYS = 3
+GRAPH_REPS = 10
+GRAPH_PROFILED = 3
+
+
+def graph_train_batches(cfg):
+    """GRAPH_STEPS train batches at B = 5 from the train pipeline, at P =
+    128 and 232 in turns (the 128 ones cut to their first 128 boxes)."""
+    from cova_tpu_torch.benchmarks import _first_boxes
+    from cova_tpu_torch.data.batching import pad_batch
+    from cova_tpu_torch.data.pipeline import make_pipelines
+    from cova_tpu_torch.data.synthetic import InMemoryWebDataset
+
+    ds = InMemoryWebDataset(GRAPH_STEPS * TRAIN_B, IMG, seed=SEED + 3,
+                            max_boxes=cfg.max_boxes)
+    train_p, _, _ = make_pipelines(cfg, ds, ds, ds)
+    out = []
+    for i, (_, batch) in zip(range(GRAPH_STEPS), train_p.epoch(1)):
+        batch = pad_batch(batch, TRAIN_B)[0]
+        p = GRAPH_TRAIN_P[i % 2]
+        out.append(batch if p == P else _first_boxes(batch, p))
+    need(len(out) == GRAPH_STEPS, f"{len(out)} train batches, not "
+                                  f"{GRAPH_STEPS}")
+    return out
+
+
+def graph_run(torch, cfg, dev, sd, batches, use_graphs, record=False,
+              forced=None):
+    """An (a) run: a state from ``sd``, one dropout generator re-seeded at
+    each epoch of GRAPH_EPOCH steps, one step a batch. ``record``: keep a
+    copy of the state and the generator's position before each step;
+    ``forced``: such copies, put in place before each step (each step then
+    starts where the recorded run's did). Returns the state, the generator,
+    the losses, the launches counted from 0 and the copies."""
+    from cova_tpu_torch.models.cova import build_model
+    from cova_tpu_torch.train.steps import create_train_state, train_step
+    from cova_tpu_torch.train.trainer import dropout_generator
+
+    model = build_model(cfg, device=dev)
+    model.load_state_dict(sd)
+    state = create_train_state(model, cfg)
+    gen = None
+    zero_counts()
+    losses, copies = [], []
+    for i, batch in enumerate(batches):
+        if i % GRAPH_EPOCH == 0:
+            gen = dropout_generator(SEED, i // GRAPH_EPOCH + 1, dev,
+                                    generator=gen)
+        if forced is not None and i > 0:  # step 1 starts from sd already
+            tensors, pos = forced[i]
+            with torch.no_grad():
+                for k, v in state_tensors(torch, state).items():
+                    v.copy_(tensors[k])
+            # A replay advances the generator as the eager step did, and
+            # the re-seed at an epoch boundary puts it where it was.
+            need(torch.equal(gen.get_state(), pos),
+                 f"step {i + 1}: the generator is not where the recorded "
+                 f"run's was")
+        if record:
+            copies.append(({k: v.detach().clone() for k, v in
+                            state_tensors(torch, state).items()},
+                           gen.get_state()))
+        losses.append(train_step(state, batch, gen,
+                                 graphs=use_graphs)["loss_sum"])
+    torch.cuda.synchronize()
+    return (state, gen, [float(x) for x in losses], launch_counts(),
+            copies)
+
+
+def state_tensors(torch, state):
+    """Every tensor a train step changes in place: parameters, buffers and
+    the optimizer's state, by name."""
+    out = dict(state.model.state_dict())
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    for p, st in state.optimizer.state.items():
+        for k, v in st.items():
+            if isinstance(v, torch.Tensor):
+                out[f"adam.{names[id(p)]}.{k}"] = v
+    return out
+
+
+def device_busy(torch, fn, n):
+    """``fn`` run ``n`` times under ``torch.profiler`` (CPU and CUDA):
+    device busy ms a run (the union of the kernels', copies' and sets'
+    intervals; the device side of annotated ranges, which spans them, is
+    left out), device events a run, and the port's kernels by name with
+    their launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cova_tpu_torch.train.steps import STEP_RANGE
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not re.fullmatch(r"[\w.]+#[\w.]+", e.name)
+              and e.name != STEP_RANGE]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:  # the union's length
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    port = {}
+    for e in events:
+        for k in ("roi_pool_pyramid_kernel", "roi_pool_bins_kernel",
+                  "roi_pool_bwd_kernel", "bn_relu_pool_fwd_kernel",
+                  "bn_relu_pool_bwd_kernel"):
+            if k in e.name:
+                port[k] = port.get(k, 0) + 1
+    return dict(device_busy_ms=busy_us / 1e3 / n,
+                device_events=len(events) / n, port_kernel_launches=port)
+
+
+# Each wrapper's kernel that launches once per wrapper launch, by the name
+# the trace gives it (K1 launches its pyramid kernel and then its bins
+# kernel).
+TRACED_WRAPPERS = {"roi_pool_bins_kernel": "roi_pool_fwd",
+                   "bn_relu_pool_fwd_kernel": "bn_relu_pool_fwd",
+                   "roi_pool_bwd_kernel": "roi_pool_bwd",
+                   "bn_relu_pool_bwd_kernel": "bn_relu_pool_bwd"}
+FORWARD_WRAPPERS = ("roi_pool_fwd", "bn_relu_pool_fwd")
+TRAIN_WRAPPERS = FORWARD_WRAPPERS + ("roi_pool_bwd", "bn_relu_pool_bwd")
+
+
+def paired_times(torch, name, make, step, wrappers,
+                 sides=(False, True, True, False)):
+    """``step(ctx, use_graphs)`` timed on the host clock in the order
+    eager, graph, graph, eager: each side on a fresh context from
+    ``make()``, two warm-up calls (the first eager, the second the graph's
+    capture), GRAPH_REPS timed calls ending in a synchronize, then
+    GRAPH_PROFILED calls under the profiler, whose kernels in the trace
+    must match the launch counters' additions over those calls. Returns
+    each side's numbers."""
+    rows = []
+    for use in sides:
+        ctx = make()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step(ctx, use)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step(ctx, use)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(GRAPH_REPS):
+            step(ctx, use)
+        end.record()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / GRAPH_REPS * 1e3
+        peaks = (torch.cuda.max_memory_allocated(),
+                 torch.cuda.max_memory_reserved())
+        before = launch_counts()
+        busy = device_busy(torch, lambda: step(ctx, use), GRAPH_PROFILED)
+        counted = {k: n - before[k] for k, n in launch_counts().items()}
+        traced = busy["port_kernel_launches"]
+        for kernel, wrapper in TRACED_WRAPPERS.items():
+            need(traced.get(kernel, 0) == counted[wrapper],
+                 f"{name} (graphs={use}): {kernel} {traced.get(kernel, 0)} "
+                 f"times in the trace, {wrapper} counted {counted[wrapper]}")
+        for wrapper in wrappers:
+            need(counted[wrapper] > 0, f"{name} (graphs={use}): {wrapper} "
+                                       f"not launched in the profiled calls")
+        row = dict(graphs=use, ms_per_step=ms,
+                   event_ms_per_step=start.elapsed_time(end) / GRAPH_REPS,
+                   first_call_s=first_s, second_call_s=second_s,
+                   peak_allocated_bytes=peaks[0],
+                   peak_reserved_bytes=peaks[1],
+                   launches_counted=counted, **busy)
+        runner = ctx.get("graphs")
+        if use and runner is not None:
+            row["graphs_held"] = len(runner().graphs)
+            row["capture_s"] = runner().capture_seconds()
+        rows.append(row)
+        del ctx
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_graphs(torch, dev):
+    """The step graphs at full width: (a) eight train steps over two
+    buckets across an epoch boundary, eager against graphs; (b) one train
+    graph replayed from one state at three generator positions against the
+    eager step at each; (c) the eval and forward graphs at every bucket and
+    a padded partial batch against the eager steps, bit for bit; (d) the
+    launch counters of (a) and (c) against the eager runs'; (e) paired
+    timings of the train step (1280^2 B = 5 and 8, 512^2 B = 5) and the
+    forward (B = 10 and 32)."""
+    import numpy as np
+
+    from cova_tpu_torch import benchmarks
+    from cova_tpu_torch.benchmarks import _first_boxes
+    from cova_tpu_torch.config import Config
+    from cova_tpu_torch.data.batching import Batch, pad_batch
+    from cova_tpu_torch.data.pipeline import make_eval_pipeline
+    from cova_tpu_torch.data.synthetic import InMemoryWebDataset
+    from cova_tpu_torch.models.cova import build_model
+    from cova_tpu_torch.train import graphs as graphs_mod
+    from cova_tpu_torch.train.steps import (
+        create_train_state,
+        eval_step,
+        forward_step,
+        train_step,
+    )
+
+    cfg = Config(img_height=IMG)
+    out = {"register_generator_state": hasattr(
+        torch.cuda.CUDAGraph, "register_generator_state")}
+    need(out["register_generator_state"],
+         "this PyTorch's CUDAGraph has no register_generator_state")
+
+    # (a) and (b) run under deterministic algorithms: on the default path
+    # the atomics of the GAT gathers' scatter-adds and of cuDNN's weight
+    # gradients make two eager runs differ in their last bits, Adam
+    # amplifies that from step to step, and their order differs between an
+    # eager run and a replay, so that eight free steps through graphs fell
+    # outside the eager runs' spread in two of six whole runs on the card.
+    # A graph captured here holds the deterministic kernels: the switches
+    # are part of its key.
+    with deterministic_algorithms(torch) as nondeterministic:
+        # (a) Eight steps from one state, eager (GRAPH_EAGER_RUNS times: the
+        # card's run-to-run spread, which Adam amplifies from step to step) and
+        # through graphs. Then the graphs again with each step started from the
+        # first eager run's state and generator position before that step:
+        # every loss the same bits.
+        batches = graph_train_batches(cfg)
+        sd = {k: v.clone() for k, v in random_state_dict(torch, cfg).items()}
+        e = graph_run(torch, cfg, dev, sd, batches, False, record=True)
+        g = graph_run(torch, cfg, dev, sd, batches, True)
+        again = [graph_run(torch, cfg, dev, sd, batches, False)
+                 for _ in range(GRAPH_EAGER_RUNS - 1)]
+        need(g[2][0] == e[2][0], f"first train loss {g[2][0]!r} through the "
+                                 f"graph, {e[2][0]!r} eager")
+        loss_rows = []
+        for i, (lg, le) in enumerate(zip(g[2], e[2])):
+            runs_i = [le] + [a[2][i] for a in again]
+            spread = max(runs_i) - min(runs_i)
+            tol = max(GRAD_RTOL * abs(le), PAR_SPREAD_MARGIN * spread)
+            loss_rows.append(dict(step=i + 1, graphs=lg, eager=runs_i,
+                                  tol=tol))
+            need(np.isfinite(lg) and abs(lg - le) <= tol,
+                 f"step {i + 1}: loss {lg} through graphs, eager {runs_i} "
+                 f"(tolerance {tol})")
+        # Every parameter and BN buffer after the last step, within the
+        # gradient rule or PAR_SPREAD_MARGIN times the farthest eager run's
+        # distance; Adam's moments (which the runs from the eager states below
+        # hold to the rule) reported.
+        def model_tensors(run):
+            return {k: v.float() for k, v in run[0].model.state_dict().items()}
+
+        def adam_tensors(run):
+            return {k: v.float()
+                    for k, v in state_tensors(torch, run[0]).items()
+                    if k.startswith("adam.")}
+
+        tb = model_tensors(e)
+        ta = model_tensors(g)
+        need(set(ta) == set(tb), "the graphed model holds other tensors")
+        vs_eager = grad_diff(ta, tb)
+        spreads = [grad_diff(model_tensors(a), tb)["share_of_tolerance"]
+                   for a in again]
+        need(vs_eager["share_of_tolerance"] <= max(
+            1.0, PAR_SPREAD_MARGIN * max(spreads)),
+            f"model after {GRAPH_STEPS} steps: graphs against eager "
+            f"{vs_eager}, eager against eager {spreads}")
+        adam_e = adam_tensors(e)
+        adam_vs = dict(graphs=grad_diff(adam_tensors(g), adam_e)[
+            "share_of_tolerance"], eager=[grad_diff(adam_tensors(a), adam_e)[
+                "share_of_tolerance"] for a in again])
+        # Where the eager runs agree bit for bit (no op ran without a
+        # deterministic kernel), the graphs' run must equal them: every
+        # loss, parameter, buffer and Adam moment.
+        exact = all(a[2] == e[2] for a in again) and all(
+            all(torch.equal(model_tensors(a)[k], tb[k]) for k in tb)
+            for a in again)
+        if exact:
+            adam_g = adam_tensors(g)
+            need(g[2] == e[2] and all(torch.equal(ta[k], tb[k]) for k in tb)
+                 and all(torch.equal(adam_g[k], v) for k, v in adam_e.items()),
+                 f"the eager runs agree bit for bit, the graphs' does not: "
+                 f"losses {g[2]} against {e[2]}, model {vs_eager}, Adam "
+                 f"{adam_vs['graphs']}")
+        del again, ta
+        tb = {k: v.float() for k, v in state_tensors(torch, e[0]).items()}
+        f = graph_run(torch, cfg, dev, sd, batches, True, forced=e[4])
+        need(f[2] == e[2], f"steps from the eager run's states: losses {f[2]} "
+                           f"through graphs, {e[2]} eager")
+        forced_last = grad_diff({k: v.float() for k, v in state_tensors(
+            torch, f[0]).items()}, tb)
+        need(forced_last["share_of_tolerance"] <= 1.0,
+             f"step {GRAPH_STEPS} from the eager run's state: {forced_last}")
+        for run, name in ((g, "graphs"), (f, "graphs from eager states")):
+            adam_steps = sorted({float(st["step"]) for st in
+                                 run[0].optimizer.state.values()})
+            need(adam_steps == [float(GRAPH_STEPS)]
+                 and run[0].step == GRAPH_STEPS,
+                 f"{name}: Adam's step counts {adam_steps}, state.step "
+                 f"{run[0].step}")
+        tracked = {r: sorted({int(v) for k, v in run[0].model.state_dict()
+                              .items() if k.endswith("num_batches_tracked")})
+                   for r, run in (("graphs", g), ("eager", e))}
+        need(tracked["graphs"] == tracked["eager"] == [GRAPH_STEPS],
+             f"num_batches_tracked {tracked}")
+        # (d), train: the counters through replays equal the eager run's.
+        need(g[3] == e[3] == f[3],
+             f"launches through graphs {g[3]} and {f[3]}, eager {e[3]}")
+        need(all(g[3][k] > 0 for k in TRAIN_KERNELS), f"launches {g[3]}")
+        runner = g[0].graphs
+        need(runner is not None and len(runner.graphs) == len(GRAPH_TRAIN_P),
+             f"train graphs held: "
+             f"{None if runner is None else len(runner.graphs)}")
+        out["train"] = dict(
+            steps=GRAPH_STEPS, epoch_boundary_after=GRAPH_EPOCH,
+            p_buckets=[b.boxes.shape[1] for b in batches], losses=loss_rows,
+            loss_bit_equal=[a == b for a, b in zip(g[2], e[2])],
+            eager_runs_bit_equal=exact,
+            model_vs_eager=vs_eager, model_eager_vs_eager_shares=spreads,
+            adam_state_shares=adam_vs,
+            from_eager_states=dict(losses_bit_equal=True,
+                                   state_after_last_step=forced_last),
+            adam_steps=GRAPH_STEPS, num_batches_tracked=tracked["graphs"],
+            launches=g[3], launches_eager=e[3],
+            capture_s=runner.capture_seconds())
+        del f, tb
+        g = g[:2]
+
+        # (b) One train graph (P = 232) replayed from one state at three
+        # generator positions, each against the eager step there.
+        state, gen = g
+        batch = batches[1]
+        saved = {k: v.detach().clone()
+                 for k, v in state_tensors(torch, state).items()}
+
+        def put_back():
+            with torch.no_grad():
+                for k, v in state_tensors(torch, state).items():
+                    v.copy_(saved[k])
+            state.step = GRAPH_STEPS
+
+        replays = []
+        for r in range(GRAPH_REPLAYS):
+            put_back()
+            pos = gen.get_state()
+            lg = float(train_step(state, batch, gen)["loss_sum"])
+            after = gen.get_state()
+            put_back()
+            gen.set_state(pos)
+            le = float(train_step(state, batch, gen, graphs=False)["loss_sum"])
+            need(torch.equal(gen.get_state(), after),
+                 f"replay {r}: the eager step left the generator elsewhere")
+            need(lg == le, f"replay {r}: loss {lg!r} through the graph, "
+                           f"{le!r} eager from the same state and generator "
+                           f"position")
+            replays.append(dict(replay=r, loss=lg, eager=le))
+        need(len({x["loss"] for x in replays}) == GRAPH_REPLAYS,
+             f"the replays drew one mask: {replays}")
+        need(len(state.graphs.graphs) == len(GRAPH_TRAIN_P),
+             "the replays captured again")
+        out["dropout"] = replays
+        del e, g, state, saved
+        torch.cuda.empty_cache()
+    out["train"]["nondeterministic_ops"] = nondeterministic
+
+    # (c) Eval and forward at every bucket, at B = 10 and for a padded
+    # partial batch, through graphs against eager, bit for bit; (d) the
+    # counters of the graphed calls against the same calls eagerly.
+    model = build_model(cfg, device=dev)
+    model.load_state_dict(random_state_dict(torch, cfg))
+    ds = InMemoryWebDataset(2 * B, IMG, seed=SEED + 4,
+                            max_boxes=cfg.max_boxes)
+    it = iter(make_eval_pipeline(cfg, ds).epoch(0))
+    full = pad_batch(next(it)[1], B)[0]
+    part = next(it)[1]
+    part = pad_batch(Batch(*[x[:3] for x in part]), B)[0]
+    calls = []
+    for p in CORPUS_BUCKETS:
+        cut = (lambda x: x) if p == P else (lambda x, p=p: _first_boxes(x, p))
+        calls += [cut(full), cut(full), cut(part)]
+
+    def serve(use):
+        zero_counts()
+        got = []
+        for batch in calls:
+            ev = eval_step(model, batch, graphs=use)
+            fw = forward_step(model, batch, graphs=use)
+            got.append((ev["correct"], ev["present"], ev["logits"],
+                        fw.logits, fw.attn_wts))
+        torch.cuda.synchronize()
+        return got, launch_counts()
+
+    want, n_eager = serve(False)
+    got, n_graphs = serve(True)
+    for i, (a, b) in enumerate(zip(got, want)):
+        for name, x, y in zip(("correct", "present", "eval logits",
+                               "logits", "attention"), a, b):
+            need(torch.equal(x, y), f"call {i} (P = {x.shape[1]}): {name} "
+                                    f"through the graph differ from eager")
+    need(n_graphs == n_eager, f"serving launches through graphs "
+                              f"{n_graphs}, eager {n_eager}")
+    held = graphs_mod.model_graphs(model)
+    need(len(held.graphs) == 2 * len(CORPUS_BUCKETS),
+         f"{len(held.graphs)} eval and forward graphs held")
+    out["serve"] = dict(p_buckets=list(CORPUS_BUCKETS), batch=B,
+                        partial_pages=3, calls=2 * len(calls),
+                        launches=n_graphs, launches_eager=n_eager,
+                        graphs_held=len(held.graphs),
+                        capture_s=held.capture_seconds())
+    del model, held, got, want
+    torch.cuda.empty_cache()
+
+    # (e) Paired timings.
+    def train_ctx(c, batch):
+        def make():
+            state = create_train_state(build_model(c, device=dev), c)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            return dict(state=state, gen=gen, batch=batch,
+                        graphs=lambda: state.graphs)
+        return make
+
+    def train_call(ctx, use):
+        train_step(ctx["state"], ctx["batch"], ctx["gen"], graphs=use)
+
+    def fwd_ctx(c, batch):
+        def make():
+            model = build_model(c, device=dev)
+            return dict(model=model, batch=batch,
+                        graphs=lambda: graphs_mod.model_graphs(model))
+        return make
+
+    def fwd_call(ctx, use):
+        forward_step(ctx["model"], ctx["batch"], graphs=use)
+
+    def staged(batch):
+        return benchmarks.stage_batch(batch, dev)
+
+    c512 = Config(img_height=CORPUS_IMG)
+    ds512 = InMemoryWebDataset(TRAIN_B, CORPUS_IMG, seed=SEED,
+                               max_boxes=c512.max_boxes)
+    b512 = pad_batch(next(iter(make_eval_pipeline(
+        c512.replace(eval_batch_size=TRAIN_B), ds512).epoch(0)))[1],
+        TRAIN_B)[0]
+    bench8 = benchmarks.bench_config(BENCH_TRAIN_B, IMG, "bfloat16", False)
+    bench32 = benchmarks.bench_config(BENCH_INFER_B, IMG, "bfloat16", False)
+    timing = {}
+    train, fwd = (train_call, TRAIN_WRAPPERS), (fwd_call, FORWARD_WRAPPERS)
+    for name, make, (call, launched) in (
+        ("train_1280_b5", train_ctx(cfg, staged(batches[1])), train),
+        ("train_1280_b8", train_ctx(bench8, staged(benchmarks.bench_batch(
+            bench8, benchmarks.TRAIN_SEED))), train),
+        ("train_512_b5", train_ctx(c512, staged(b512)), train),
+        ("forward_1280_b10", fwd_ctx(cfg, staged(full)), fwd),
+        # The serve phase's batch as it comes: host arrays, pinned and
+        # copied at every call.
+        ("forward_1280_b10_host", fwd_ctx(cfg, full), fwd),
+        ("forward_1280_b32", fwd_ctx(bench32, staged(benchmarks.bench_batch(
+            bench32, benchmarks.INFER_SEED))), fwd),
+    ):
+        timing[name] = paired_times(torch, name, make, call, launched)
+    out["timing"] = timing
+    out["timing_order"] = "eager, graphs, graphs, eager"
+    return out
+
+
 def check_prefetcher(torch, dev, cfg):
     """The trainer's path to the device: every prefetched batch equals its
     host batch byte for byte, and a first train step fed by the prefetcher
@@ -2105,9 +2654,12 @@ def check_prefetcher(torch, dev, cfg):
 
 
 def timed_forward(torch, model, batch, reps=10):
+    """The first forward's output (eager) and ms per forward over ``reps``
+    after it and the capture of the batch's graph."""
     from cova_tpu_torch.train.steps import forward_step
 
     out = forward_step(model, batch)
+    forward_step(model, batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -2118,7 +2670,9 @@ def timed_forward(torch, model, batch, reps=10):
 
 def timed_steps(torch, cfg, dev, batch, sd=None, reps=10, warmup=2):
     """ms per train step (Adam included) on a fixed batch from the seeded
-    init (or ``sd``), the last loss, and peak memory over the timed steps."""
+    init (or ``sd``), the first and the last loss, peak memory over all the
+    steps, and the number of steps taken. The warm-up takes at least
+    two steps, so that the graph's capture (the second) is not timed."""
     from cova_tpu_torch.models.cova import build_model
     from cova_tpu_torch.train.steps import create_train_state, train_step
 
@@ -2126,10 +2680,14 @@ def timed_steps(torch, cfg, dev, batch, sd=None, reps=10, warmup=2):
     if sd is not None:
         state.model.load_state_dict(sd)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    warmup = max(warmup, 2)
+    # From the first step on: a replay allocates only its copies, the
+    # step's own peak falls in the eager step and the capture.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     losses = [float(train_step(state, batch, gen)["loss_sum"])
               for _ in range(warmup)]
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(reps):
         m = train_step(state, batch, gen)
@@ -2137,7 +2695,8 @@ def timed_steps(torch, cfg, dev, batch, sd=None, reps=10, warmup=2):
     ms = (time.perf_counter() - t0) / reps * 1e3
     return dict(ms_per_step=ms, first_loss=losses[0],
                 last_loss=float(m["loss_sum"]),
-                peak_memory_bytes=torch.cuda.max_memory_allocated())
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                steps=warmup + reps)
 
 
 def compare_logits(torch, dev, batch, got, want, steps, what):
@@ -2332,7 +2891,7 @@ def phase_conv(torch, dev, tmp):
     captured = []
     hook = layer1[0].register_forward_pre_hook(
         lambda mod, args: captured.append(args[0]))
-    forward_step(model, batch)
+    forward_step(model, batch, graphs=False)  # a replay runs no hook
     hook.remove()
     with torch.inference_mode():
         fm = captured[0]  # [10, 320, 320, 64]
@@ -2388,7 +2947,7 @@ def phase_backbones(torch, dev):
         model = build_model(cfg, device=dev)
         model.load_state_dict(random_state_dict(torch, cfg))
         with plain_ops():
-            plain = forward_step(model, batch)
+            plain = forward_step(model, batch, graphs=False)
         row = dict(img=size, batch=b, P=batch.boxes.shape[1])
         if name == "resnet18":
             before = launch_counts()["conv3x3_fwd"]
@@ -2403,7 +2962,8 @@ def phase_backbones(torch, dev):
                 before = launch_counts()["conv3x3_fwd"]
                 row["step_opt_in"] = timed_steps(torch, cfg, dev, batch,
                                                  reps=3, warmup=1)
-                per_step = (launch_counts()["conv3x3_fwd"] - before) // 4
+                per_step = ((launch_counts()["conv3x3_fwd"] - before)
+                            // row["step_opt_in"]["steps"])
                 need(per_step == 27, f"K7 launched {per_step} times per "
                                      f"resnet18 train step, expected 27")
             row["step"] = timed_steps(torch, cfg, dev, batch, reps=3,
@@ -2530,7 +3090,7 @@ def main() -> int:
     # them); the summary and the ok line come only from a whole run.
     phases = ("kernels", "conv_kernels", "serve", "train", "bench",
               "export", "visualize", "sweep", "parallel", "corpus",
-              "profile", "conv", "backbones")
+              "profile", "graphs", "conv", "backbones")
     only = sys.argv[1:]
     need(all(p in phases for p in only), f"phases are {phases}")
 
@@ -2611,6 +3171,10 @@ def main() -> int:
             profile_launches, profile = phase_profile(torch, dev, tmp)
         emit({"phase": "profile", "seconds": seconds(),
               "launches": profile_launches, **profile})
+    if wanted("graphs"):
+        seconds()
+        emit({"phase": "graphs", **phase_graphs(torch, dev),
+              "seconds": seconds()})
     if wanted("conv"):
         seconds()
         with tempfile.TemporaryDirectory() as tmp:

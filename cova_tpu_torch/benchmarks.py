@@ -6,7 +6,7 @@ and returned JSON keys, plus ``device`` (``cuda`` by default). The
 torch-CPU anchors that ``vs_baseline`` divides by are the repository's
 ``baseline_torch.json`` and ``baseline_torch_infer.json``.
 
-Timing, as the JAX package's benches measure it but in eager PyTorch:
+Timing, as the JAX package's benches measure it:
 
   * the train and infer benches stage one batch on the device and time
     ``steps`` calls of ``train_step`` (or ``forward_step``, eval mode) per
@@ -15,10 +15,14 @@ Timing, as the JAX package's benches measure it but in eager PyTorch:
     the best of ``windows`` is kept (host noise is additive);
   * the e2e bench times whole epochs fed by ``DataPipeline`` through
     ``data.device_prefetch``, as the trainer feeds them, after one warm
-    epoch and one warm step at every bucket shape.
+    epoch and two warm steps at every bucket shape (the first runs eagerly,
+    the second captures the step's graph).
 
-The JAX benches run their steps inside one jitted loop that needs a carry
-to defeat loop-invariant hoisting; eager calls need none. Two parts of them
+The steps run through CUDA graphs on a CUDA device (``train/graphs.py``:
+one graph per shape, as the JAX package's ``jax.jit``), or eagerly with
+``graphs=False``, which is how one process times both sides. The JAX
+benches run their steps inside one jitted loop that needs a carry to
+defeat loop-invariant hoisting; a replayed graph needs none. Two parts of them
 are left out on purpose: the VMEM compile-OOM fallback (the port's kernels
 raise when a shape does not fit, ``ops/vmem_fallback`` has no counterpart)
 and the three-attempt retry after a failed first dispatch (it served a
@@ -151,9 +155,11 @@ def run_train_bench(
     backbone: str = "resnet18_stem",
     context_size: int = 12,
     device="cuda",
+    graphs: bool = True,
 ):
     """Training throughput: forward, backward and the Adam update on a
-    batch staged on the device."""
+    batch staged on the device (``graphs``: through the step's CUDA
+    graph)."""
     from .models.cova import build_model
     from .train.steps import create_train_state, train_step
 
@@ -163,8 +169,9 @@ def run_train_bench(
     batch = stage_batch(bench_batch(cfg, TRAIN_SEED), device)
     state = create_train_state(build_model(cfg, device=device), cfg)
     gen = torch.Generator(device=device).manual_seed(1)
-    best_dt = _best_step_seconds(lambda: train_step(state, batch, gen),
-                                 steps, windows, device)
+    best_dt = _best_step_seconds(
+        lambda: train_step(state, batch, gen, graphs=graphs), steps, windows,
+        device)
     pages_per_sec = batch_size / best_dt
     vs_baseline = _vs_baseline(pages_per_sec, "baseline_torch.json",
                                img_height)
@@ -196,6 +203,7 @@ def run_e2e_bench(
     source: str = "mem",
     use_additional_feat: bool = False,
     device="cuda",
+    graphs: bool = True,
 ):
     """Pipeline-fed training throughput: batches flow from ``DataPipeline``
     (BG sampling, context build, padded collation) through
@@ -267,18 +275,20 @@ def run_e2e_bench(
             )
             m = None
             for _, _, on_device in device_prefetch(padded, device, size=2):
-                m = train_step(state, on_device, gen)
+                m = train_step(state, on_device, gen, graphs=graphs)
             float(m["loss_sum"])  # the epoch ends when the device is done
 
         one_epoch(0)
-        # One step at every bucket shape the trainer could dispatch, so no
-        # first use of a shape (kernel plans, allocator growth) falls in
-        # the timed epochs: a bucket can first appear in any epoch.
+        # Two steps at every bucket shape the trainer could dispatch, so no
+        # first use of a shape (kernel plans, allocator growth, the graph's
+        # eager step and its capture) falls in the timed epochs: a bucket
+        # can first appear in any epoch.
         p_full = example.boxes.shape[1]
-        warm_gen = torch.Generator(device=device).manual_seed(2)
         for t in sorted({b for b in cfg.box_buckets if b < p_full}
                         | {p_full}):
-            train_step(state, _first_boxes(example, t), warm_gen)
+            for _ in range(2):
+                train_step(state, _first_boxes(example, t), gen,
+                           graphs=graphs)
         _sync(device)
         t0 = time.perf_counter()
         for e in range(1, epochs + 1):
@@ -296,6 +306,7 @@ def run_e2e_bench(
         compute_dtype=compute_dtype,
         use_additional_feat=use_additional_feat,
         device=device,
+        graphs=graphs,
     )
     return {
         "metric": "e2e_train_webpages_per_sec",
@@ -324,10 +335,11 @@ def run_infer_bench(
     backbone: str = "resnet18_stem",
     context_size: int = 12,
     device="cuda",
+    graphs: bool = True,
 ):
     """Serving throughput: the eval-mode forward (running BN statistics,
     no optimizer state) with logits for every box of the page, on a batch
-    staged on the device."""
+    staged on the device (``graphs``: through the forward's CUDA graph)."""
     from .models.cova import build_model
     from .train.steps import forward_step
 
@@ -336,8 +348,9 @@ def run_infer_bench(
                        use_additional_feat, backbone, context_size)
     batch = stage_batch(bench_batch(cfg, INFER_SEED), device)
     model = build_model(cfg, device=device).eval()
-    best_dt = _best_step_seconds(lambda: forward_step(model, batch),
-                                 steps, windows, device)
+    best_dt = _best_step_seconds(
+        lambda: forward_step(model, batch, graphs=graphs), steps, windows,
+        device)
     pages_per_sec = batch_size / best_dt
     vs_baseline = _vs_baseline(pages_per_sec, "baseline_torch_infer.json",
                                img_height)

@@ -405,6 +405,13 @@ def cmd_train(args) -> int:
     )
     if args.synthetic and args.synthetic_hard:
         _append_oracle_row(cfg, test_ds, log_file)
+    if device.type == "cuda":
+        import torch
+
+        # This process's peak, the step graphs' private pools included.
+        print(f"Peak device memory: "
+              f"{torch.cuda.max_memory_allocated(device)} bytes allocated, "
+              f"{torch.cuda.max_memory_reserved(device)} bytes reserved")
     return 0
 
 

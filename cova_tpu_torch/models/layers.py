@@ -78,8 +78,10 @@ class MaskedBatchNorm(nn.Module):
         f = self.features
         red = tuple(range(xf.ndim - 1))
         if mask is None:
-            n = torch.tensor(float(xf.numel() // xf.shape[-1] * g),
-                             device=xf.device)
+            # Made on the device (no host copy, which a CUDA graph cannot
+            # hold); the same f32 value as torch.tensor(float(...)).
+            n = torch.full((), float(xf.numel() // xf.shape[-1] * g),
+                           device=xf.device)
             s1 = xf.sum(red)
             s2 = (xf * xf).sum(red)
         else:

@@ -57,6 +57,18 @@ def _tap_index(kh: int, kw: int, cin: int, pad: int) -> np.ndarray:
     return idx
 
 
+@functools.lru_cache(maxsize=None)
+def _tap_index_on(kh: int, kw: int, cin: int, pad: int,
+                  device: torch.device) -> torch.Tensor:
+    """``_tap_index`` on ``device``, copied there once: a copy from the host
+    in every forward would sync, and a CUDA graph cannot hold it (in the
+    JAX package the index is a compile-time constant). Made as a normal
+    tensor also when first asked for under ``torch.inference_mode()``: a
+    later training forward saves it for its backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_tap_index(kh, kw, cin, pad)).to(device)
+
+
 def s2d4_host(img: np.ndarray) -> np.ndarray:
     """Host-side space-to-depth(4): [H, W, C] -> [H/4, W/4, 16*C], channel
     order (dy, dx, c), the layout ``stem_conv_s2d`` consumes."""
@@ -95,7 +107,7 @@ def stem_kernel_s2d(weight: torch.Tensor) -> torch.Tensor:
     """The [4*O, 48, 3, 3] (OIHW) kernel of ``stem_conv_s2d``, gathered from
     the 7x7 stem weight [O, 3, 7, 7] (torch's OIHW layout)."""
     o, cin, kh, kw = weight.shape
-    idx = torch.from_numpy(_tap_index(kh, kw, cin, kh // 2)).to(weight.device)
+    idx = _tap_index_on(kh, kw, cin, kh // 2, weight.device)
     k7 = weight.permute(2, 3, 1, 0).reshape(kh * kw * cin, o)  # (ky, kx, c)
     k_flat = torch.cat([k7, k7.new_zeros(1, o)], 0)
     k4 = k_flat[idx]  # [3, 3, 48, 4, O]

@@ -36,6 +36,7 @@ import torch
 from ..config import Config
 from ..data.batching import Batch
 from ..models.cova import build_model
+from ..ops import launches as kernel_launches
 from ..train.steps import (
     create_train_state,
     forward_backward,
@@ -44,25 +45,6 @@ from ..train.steps import (
 )
 from . import collectives, distributed
 from .mesh import Mesh, full_state_dict, make_mesh
-
-
-def _wrappers():
-    """The kernel wrappers that count their launches, by kernel name."""
-    from ..ops import bn_pool, roi_pool
-
-    return {"roi_pool_fwd": roi_pool.roi_pool,
-            "roi_pool_bwd": roi_pool.roi_pool_backward,
-            "bn_relu_pool_fwd": bn_pool.bn_relu_pool_s2d,
-            "bn_relu_pool_bwd": bn_pool.bn_relu_pool_s2d_backward}
-
-
-def _zero_launches() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
-
-
-def _launches() -> Dict[str, int]:
-    return {k: int(fn.launches) for k, fn in _wrappers().items()}
 
 
 def load_batch(path: str) -> Batch:
@@ -124,10 +106,10 @@ def _run_layout(cfg, sd, batch, device, seed, mesh, timing) -> dict:
         batch = Batch(*[x[d * per:(d + 1) * per] for x in batch])
     gen = torch.Generator(device=device).manual_seed(seed)
     _sync(device)
-    _zero_launches()
+    kernel_launches.zero()
     m = forward_backward(state, batch, gen)
     _sync(device)
-    launches = _launches()
+    launches = kernel_launches.counts()
     loss = m["loss_sum"].detach().reshape(1).clone()
     collectives.all_reduce_(loss, None if mesh is None else mesh.data_group)
     grads = _full_grads(state.model, mesh)
@@ -137,13 +119,15 @@ def _run_layout(cfg, sd, batch, device, seed, mesh, timing) -> dict:
                       full_state_dict(state.model, mesh).items()})
     if timing:
         distributed.barrier()
+        # Eager on every layout, the single process included: a mesh's
+        # step cannot be a CUDA graph, and its times are compared with it.
         for _ in range(timing["warmup"]):
-            train_step(state, batch, gen)
+            train_step(state, batch, gen, graphs=False)
         _sync(device)
         distributed.barrier()
         t0 = time.perf_counter()
         for _ in range(timing["reps"]):
-            train_step(state, batch, gen)
+            train_step(state, batch, gen, graphs=False)
         _sync(device)
         out["ms_per_step"] = (time.perf_counter() - t0) / timing["reps"] * 1e3
         times, nbytes = [], {}

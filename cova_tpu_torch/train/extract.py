@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 
 from ..data.batching import pad_batch
+from ..data.device_prefetch import device_prefetch
 from .steps import forward_step
 
 
@@ -43,7 +44,8 @@ def extract_attention(
 ):
     """Run ``model`` (eval mode) over the pipeline's pages, writing one
     attention CSV per page into ``out_dir`` and, with ``visualize``, the
-    overlays of ``<data_dir>/imgs/<id>.png``."""
+    overlays of ``<data_dir>/imgs/<id>.png``. Batches reach the model's
+    device through ``data.device_prefetch``, as ``predict_pages``'s do."""
     os.makedirs(out_dir, exist_ok=True)
     eval_bs = pipeline.batch_size
     n_done = 0
@@ -60,10 +62,16 @@ def extract_attention(
             "2K*4 context bbox coords, 2K attention weights]"
         )
 
-    for ids, batch in pipeline.epoch(epoch=0):
+    def padded_batches():
+        for ids, batch in pipeline.epoch(epoch=0):
+            yield (ids, batch), pad_batch(batch, eval_bs)[0]
+
+    device = next(model.parameters()).device
+    for (ids, batch), _, on_device in device_prefetch(padded_batches(),
+                                                      device):
         real_b = batch.batch_size
-        padded, _ = pad_batch(batch, eval_bs)
-        attn = forward_step(model, padded).attn_wts.cpu().numpy()  # [B,P,K]
+        attn = forward_step(model, on_device).attn_wts  # [B, P, K]
+        attn = attn.cpu().numpy()
         for i in range(real_b):
             if max_pages is not None and n_done >= max_pages:
                 return done()

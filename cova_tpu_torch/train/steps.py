@@ -20,11 +20,20 @@ replicated parameters' gradients are made bit-equal across the model group
 The train step returns its metrics as device tensors, so the trainer
 fetches them once per epoch. ``forward_step`` and ``eval_step`` run under
 ``torch.inference_mode()``; the train step does not.
+
+On one CUDA device the three steps run through CUDA graphs, one per shape
+and setting, as the JAX package's are jitted (``train/graphs.py``); the
+keyword ``graphs=False`` runs them eagerly, and on the CPU and on a mesh
+they always run eagerly. On CUDA, Adam is ``capturable``: its step counts
+stay on the device and its bias correction is computed there in f32, so
+the card's updates differ in their last bits from those of the host-side
+path that the CPU runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -33,6 +42,7 @@ import torch.nn.functional as F
 from ..data.batching import Batch
 from ..parallel.collectives import all_reduce_, broadcast_
 from ..parallel.mesh import MODEL_SHARDED
+from . import graphs as step_graphs
 
 
 def _to_device(a, device) -> torch.Tensor:
@@ -64,13 +74,15 @@ def batch_to_device(batch: Batch, device) -> dict:
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters and BN statistics), its optimizer, the number
-    of steps taken and the mesh the model is laid out on (None: one
-    device)."""
+    of steps taken, the mesh the model is laid out on (None: one device)
+    and its train steps' graphs (``graphs.state_graphs``; None until the
+    first graphed step)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     mesh: Optional[object] = None
+    graphs: Optional[step_graphs.StepGraphs] = None
 
     @property
     def device(self) -> torch.device:
@@ -80,9 +92,14 @@ class TrainState:
 def make_optimizer(params, learning_rate: float,
                    weight_decay: float) -> torch.optim.Adam:
     """torch ``Adam(lr, weight_decay=wd)``: grad += wd * param, then the
-    Adam moments (0.9, 0.999, eps 1e-8), then the constant learning rate."""
+    Adam moments (0.9, 0.999, eps 1e-8), then the constant learning rate.
+    ``capturable`` on CUDA, so that a CUDA graph can hold the step (torch
+    refuses it for CPU parameters)."""
+    params = list(params)
+    capturable = bool(params) and params[0].device.type == "cuda"
     return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=weight_decay)
+                            eps=1e-8, weight_decay=weight_decay,
+                            capturable=capturable)
 
 
 def create_train_state(model, cfg, mesh=None) -> TrainState:
@@ -150,10 +167,15 @@ def forward_backward(state: TrainState, batch: Batch,
     leaving in each ``.grad`` the gradient of the global batch's loss (on a
     mesh, summed over the data group). Returns ``loss_sum``, ``n_correct``
     and ``n_boxes`` of this rank's rows as 0-d device tensors."""
+    labels = _to_device(batch.labels, state.device)
+    return _forward_backward(state, generator, labels,
+                             **batch_to_device(batch, state.device))
+
+
+def _forward_backward(state: TrainState, generator, labels,
+                      **inputs) -> dict:
     model = state.model
     model.train()
-    inputs = batch_to_device(batch, state.device)
-    labels = _to_device(batch.labels, state.device)
     mask = inputs["box_mask"]
     out = model(**inputs, generator=generator)
     loss = masked_ce_sum(out.logits, labels, mask)
@@ -171,35 +193,78 @@ def forward_backward(state: TrainState, batch: Batch,
         }
 
 
+def _train_body(state: TrainState, generator, **inputs) -> dict:
+    """The device work of a train step: forward, backward, Adam."""
+    metrics = _forward_backward(state, generator, **inputs)
+    state.optimizer.step()
+    return metrics
+
+
+# The host range of every train step in a profiler trace, eager or replayed
+# (a graph's replay runs no Adam on the host); scripts/read_torch_trace.py
+# counts steps by it.
+STEP_RANGE = "cova_tpu_torch.train_step"
+
+
 def train_step(state: TrainState, batch: Batch,
-               generator: Optional[torch.Generator] = None) -> dict:
+               generator: Optional[torch.Generator] = None,
+               graphs: bool = True) -> dict:
     """One forward/backward/update (``forward_backward``, then Adam).
     Returns ``loss_sum``, ``n_correct`` and ``n_boxes`` as 0-d device
-    tensors (this rank's rows)."""
-    metrics = forward_backward(state, batch, generator)
-    state.optimizer.step()
+    tensors (this rank's rows). ``graphs``: through the state's train
+    graph of this batch's shape where ``graphs.enabled`` allows it."""
+    with torch.profiler.record_function(STEP_RANGE):
+        state.model.train()
+        inputs = batch_to_device(batch, state.device)
+        inputs["labels"] = _to_device(batch.labels, state.device)
+        body = functools.partial(_train_body, state, generator)
+        if step_graphs.enabled(graphs, state.device, state.mesh):
+            key = step_graphs.step_key("train", state.model, inputs,
+                                       generator)
+            metrics = step_graphs.state_graphs(state).run(
+                key, body, inputs, () if generator is None else (generator,))
+        else:
+            metrics = body(**inputs)
     state.step += 1
     return metrics
 
 
 @torch.inference_mode()
-def eval_step(model, batch: Batch, n_classes: int = 4, k: int = 1) -> dict:
-    """Inference + retrieval metric; BN on running stats, dropout off."""
+def eval_step(model, batch: Batch, n_classes: int = 4, k: int = 1,
+              graphs: bool = True) -> dict:
+    """Inference + retrieval metric; BN on running stats, dropout off.
+    ``graphs``: through the model's eval graph of this batch's shape where
+    ``graphs.enabled`` allows it (the caller passes False on a mesh)."""
     model.eval()
     device = next(model.parameters()).device
     inputs = batch_to_device(batch, device)
+    inputs["labels"] = _to_device(batch.labels, device)
+    body = functools.partial(_eval_body, model, n_classes, k)
+    if step_graphs.enabled(graphs, device):
+        key = step_graphs.step_key("eval", model, inputs, n_classes, k)
+        return step_graphs.model_graphs(model).run(key, body, inputs)
+    return body(**inputs)
+
+
+def _eval_body(model, n_classes: int, k: int, labels, **inputs) -> dict:
     out = model(**inputs)
-    labels = _to_device(batch.labels, device)
     correct, present = retrieval_metric(out.logits, labels,
                                         inputs["box_mask"], n_classes, k=k)
     return {"correct": correct, "present": present, "logits": out.logits}
 
 
 @torch.inference_mode()
-def forward_step(model, batch: Batch):
+def forward_step(model, batch: Batch, graphs: bool = True):
     """Plain inference returning logits + attention weights (BN on running
-    stats, dropout off)."""
-    return model(**batch_to_device(batch, next(model.parameters()).device))
+    stats, dropout off). ``graphs``: through the model's forward graph of
+    this batch's shape where ``graphs.enabled`` allows it (the caller
+    passes False on a mesh)."""
+    device = next(model.parameters()).device
+    inputs = batch_to_device(batch, device)
+    if step_graphs.enabled(graphs, device):
+        key = step_graphs.step_key("forward", model, inputs)
+        return step_graphs.model_graphs(model).run(key, model, inputs)
+    return model(**inputs)
 
 
 def retrieval_metric(
@@ -221,7 +286,7 @@ def retrieval_metric(
     gives that order. (The reference's ascending argsort keeps the highest
     index: the documented, measure-zero divergence.)
     """
-    neg = torch.tensor(float("-inf"), device=logits.device)
+    neg = torch.full((), float("-inf"), device=logits.device)
     masked = torch.where(mask[..., None], logits.float(), neg)
     corrects, presents = [], []
     for c in range(1, n_classes):

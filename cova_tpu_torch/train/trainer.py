@@ -9,7 +9,11 @@ Counterpart of ``cova_tpu/train/trainer.py`` (the reference's
   * train metrics stay on the device and are fetched once per epoch;
   * each epoch's dropout masks come from a ``torch.Generator`` keyed by
     (seed, epoch), and on a mesh by (seed, epoch, data rank), so
-    ``--resume`` continues the exact stream of an uninterrupted run;
+    ``--resume`` continues the exact stream of an uninterrupted run; a run
+    keeps one generator, re-seeded at each epoch, which its train graphs
+    hold;
+  * on one CUDA device the train and eval steps run through CUDA graphs
+    (``train/graphs.py``), on the CPU and on a mesh eagerly;
   * checkpoints carry the optimizer state (``utils/checkpoint.py``);
   * batches reach the device through ``data.device_prefetch``: the next
     batch's copy runs on a side stream while the current step computes.
@@ -51,14 +55,19 @@ from ..utils.logging import MetricsLogger, print_and_log
 from .steps import TrainState, eval_step, train_step
 
 
-def dropout_generator(seed: int, epoch: int, device,
-                      data_rank: int = 0) -> torch.Generator:
+def dropout_generator(seed: int, epoch: int, device, data_rank: int = 0,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Generator:
     """The generator of an epoch's dropout masks, keyed by (seed, epoch)
     and, on data ranks past the first, by the data rank (the ranks of one
-    model row share a stream: their activations are replicated)."""
+    model row share a stream: their activations are replicated).
+    ``generator``: re-seeded with that key and returned (the same stream
+    as a new one), so that the train graphs that registered it keep it."""
     entropy = [seed, epoch] + ([data_rank] if data_rank else [])
     key = int(np.random.SeedSequence(entropy).generate_state(1)[0])
-    return torch.Generator(device=device).manual_seed(key)
+    if generator is None:
+        generator = torch.Generator(device=device)
+    return generator.manual_seed(key)
 
 
 def epoch_profiler(profile_dir: str, device):
@@ -95,7 +104,9 @@ def run_eval(
     multiple of the data degree (padded pages are masked), bucketed as a
     whole, and data rank d runs its block of rows; the flags are then
     assembled on every rank by an all-reduce of a zero-filled buffer over
-    the data group (the ranks of one model row run the same rows)."""
+    the data group (the ranks of one model row run the same rows).
+    Without a mesh, the eval steps run through the model's graphs on a
+    CUDA device (``train/graphs.py``)."""
     start = time.time()
     eval_bs = pipeline.batch_size
     dp = mesh.n_data if mesh is not None else 1
@@ -115,7 +126,8 @@ def run_eval(
     padded = ((ids[: batch.batch_size], mine(batch))
               for ids, batch in pipeline.epoch(0))
     for ids, _, on_device in device_prefetch(padded, device):
-        correct = eval_step(model, on_device, n_classes, k)["correct"]
+        correct = eval_step(model, on_device, n_classes, k,
+                            graphs=mesh is None)["correct"]
         if dp > 1:
             with torch.inference_mode():
                 buf = torch.zeros((pad_bs, correct.shape[1]),
@@ -198,8 +210,10 @@ def fit(
     print_and_log("Training Model for %d epochs..." % cfg.n_epochs, None)
     buckets = tuple(cfg.box_buckets)
     stop = False
+    gen = None
     for epoch in range(start_epoch, cfg.n_epochs + 1):
-        gen = dropout_generator(cfg.seed, epoch, state.device, data_rank)
+        gen = dropout_generator(cfg.seed, epoch, state.device, data_rank,
+                                generator=gen)
         start = time.time()
         step_metrics = []
         # Every data rank buckets to the GLOBAL batch's largest box count,

@@ -68,13 +68,28 @@ class CheckpointManager:
     def restore(self, tag: str, state) -> dict:
         """Load checkpoint ``tag`` into ``state`` in place: model, optimizer
         and step (this rank's slices on a mesh). Returns its ``extra``
-        dict."""
+        dict. The optimizer's state tensors are replaced, so the state's
+        train graphs, which hold their addresses, are dropped; the model's
+        tensors are copied in place and its eval graphs stay valid."""
         mesh = getattr(state, "mesh", None)
         ckpt = load_checkpoint(self.path(tag))
         load_full_state_dict(state.model, ckpt["model"], mesh)
+        # Adam's `capturable` follows this state's device (on CUDA only,
+        # `train/steps.py:make_optimizer`), not the file's: a card's
+        # checkpoint resumes on the CPU, a CPU one on the card, where the
+        # step counts then live on the card as a captured step needs.
+        capturable = [g.get("capturable", False)
+                      for g in state.optimizer.param_groups]
         state.optimizer.load_state_dict(
             shard_optimizer_state(ckpt["optimizer"], state.model, mesh))
+        for group, cap in zip(state.optimizer.param_groups, capturable):
+            group["capturable"] = cap
+            for p in group["params"] if cap else ():
+                st = state.optimizer.state.get(p, {})
+                if "step" in st:
+                    st["step"] = st["step"].to(p.device, torch.float32)
         state.step = int(ckpt["step"])
+        state.graphs = None
         return ckpt["extra"]
 
 

@@ -1,23 +1,24 @@
 #!/usr/bin/env python3
-"""The port's ``cli bench`` on one GPU, in turns, every result printed.
+"""The port's benches on one GPU, eager and through CUDA graphs in turns,
+every result printed.
 
     python3 scripts/bench_port.py [--rounds 2] [--out FILE.jsonl]
 
-Each round runs ``cova_tpu_torch.cli bench`` in this process at the
-flagship widths (1280^2, bf16): train (B = 8) and infer (B = 32) with
-``COVA_CUDA_CONV`` off and on, in the order off, on in even rounds and on,
-off in odd ones, then e2e (in-memory pages, its defaults: 64 pages, three
-timed epochs after a warm one). The opt-in is read at each conv call, so
-one process can take both sides. Every line carries the card's name and
-power limit from ``nvidia-smi``; the last line holds, per configuration,
-every reading and its spread (max - min).
+Each round runs ``cova_tpu_torch.benchmarks`` in this process at the
+flagship widths (1280^2, bf16): train (B = 8), infer (B = 32) and e2e
+(in-memory pages, its defaults: 64 pages, three timed epochs after a warm
+one), each with its steps eager (``graphs=False``) and through their CUDA
+graphs (``graphs=True``, the default), in the order eager, graphs in even
+rounds and graphs, eager in odd ones. Each line also holds the peak
+device memory of its run, allocated and reserved (with graphs: every
+graph's private pool; e2e warms every box bucket). Every line carries the
+card's name and power limit from ``nvidia-smi``; the last line holds, per
+configuration, every reading and its spread (max - min).
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
-import io
 import json
 import os
 import subprocess
@@ -26,18 +27,16 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def bench(flags, conv: bool):
-    """One ``cli bench`` run with the conv opt-in set as asked: its JSON
-    result."""
-    from cova_tpu_torch import cli
+def bench(mode: str, graphs: bool) -> dict:
+    """One bench, its steps through graphs or eager."""
+    from cova_tpu_torch import benchmarks
 
-    os.environ["COVA_CUDA_CONV"] = "1" if conv else "0"
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["bench", *flags])
-    if rc != 0:
-        raise SystemExit(f"bench {flags} returned {rc}")
-    return json.loads(buf.getvalue().strip().splitlines()[-1])
+    if mode == "e2e":
+        return benchmarks.run_e2e_bench(batch_size=8, source="mem",
+                                        graphs=graphs)
+    if mode == "infer":
+        return benchmarks.run_infer_bench(batch_size=32, graphs=graphs)
+    return benchmarks.run_train_bench(batch_size=8, graphs=graphs)
 
 
 def main() -> int:
@@ -69,17 +68,16 @@ def main() -> int:
     runs = {}
     for r in range(args.rounds):
         order = (False, True) if r % 2 == 0 else (True, False)
-        for mode, flags in (("train", ["-bsb", "8"]),
-                            ("infer", ["-bsb", "32"])):
-            for conv in order:
-                res = bench(["--mode", mode, *flags], conv)
-                key = f"{mode} conv_opt_in={int(conv)}"
+        for mode in ("train", "infer", "e2e"):
+            for graphs in order:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                res = bench(mode, graphs)
+                res["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+                res["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+                key = f"{mode} graphs={int(graphs)}"
                 runs.setdefault(key, []).append(res)
                 emit({"round": r, "config": key, "nvidia_smi": smi, **res})
-        res = bench(["--mode", "e2e", "--e2e_source", "mem"], False)
-        runs.setdefault("e2e conv_opt_in=0", []).append(res)
-        emit({"round": r, "config": "e2e conv_opt_in=0",
-              "nvidia_smi": smi, **res})
     summary = {}
     for key, rs in runs.items():
         vals = [x["value"] for x in rs]

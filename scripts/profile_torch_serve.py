@@ -7,6 +7,8 @@ PyTorch port goes.
     ... --train --prefetch   # batches through data.device_prefetch
     ... [--train] --conv     # with COVA_CUDA_CONV=1 (the hand-written conv)
     ... [--train] --bench    # the batch of `cli bench` (infer / train mode)
+    ... --train --stack NAME # which op of the model launches kernel NAME
+    ... [--train] --graphs   # the steps through their CUDA graphs
 
 Builds the flagship model (resnet18_stem, 1280^2, P = 232, -cs 12, -hd 384,
 bf16). Serving: the seeded random weights of ``chip_smoke.py`` and one batch
@@ -24,6 +26,15 @@ window's wall time per batch, the device's
 busy time (union of kernel and copy intervals), its idle share, device time
 by category, the top kernels, the top aten ops with their input shapes, and
 the host ops with the most self CPU time.
+
+The steps run eagerly (``graphs=False``) unless ``--graphs`` is given: a
+CUDA graph's replay has no host ops of its own, only its kernels, and the
+warm-up's second step captures it. With ``--stack NAME`` the trace
+also records shapes and Python stacks, and the line adds, for every device
+kernel whose name holds NAME, the host op that launched it, the autograd
+node above it, and the forward op of that node (matched by its sequence
+number) with its input shapes and Python stack: the model's line that the
+kernel serves.
 """
 
 from __future__ import annotations
@@ -72,6 +83,55 @@ def union(spans):
     return merged
 
 
+def kernel_sources(events, name: str) -> list:
+    """For each host op that launched a kernel whose name holds ``name``:
+    the op, the autograd node above it (in the backward), and the forward
+    op of that node (the same sequence number, on the forward's thread),
+    each with input shapes; the forward op with its Python stack. One entry
+    per distinct chain, with its launch count."""
+    cpu = [e for e in events if getattr(e, "kernels", None)]
+    fwd = {}
+    for e in events:
+        seq = getattr(e, "sequence_nr", -1)
+        if seq >= 0 and e.name.startswith("aten::"):
+            fwd.setdefault(seq, e)
+
+    def python_stack(e):
+        """The port's Python frames of ``e``, innermost first: its
+        ``stack`` (file and line), or where the trace holds the frames as
+        parent events instead, those (file and the function's first
+        line)."""
+        frames = list(e.stack or [])
+        if not frames:
+            p = e.cpu_parent
+            while p is not None:
+                frames.append(p.name)
+                p = p.cpu_parent
+        return [f for f in frames if "cova_tpu_torch/" in f]
+    chains = {}
+    for e in cpu:
+        n = sum(1 for k in e.kernels if name in k.name)
+        if not n:
+            continue
+        node = e
+        while node is not None and not node.name.endswith("Backward0") \
+                and "Backward" not in node.name:
+            node = node.cpu_parent
+        seq = getattr(node, "sequence_nr", -1) if node is not None else -1
+        f = fwd.get(seq)
+        key = (e.name, str(e.input_shapes), node.name if node else None,
+               f.name if f else None)
+        entry = chains.setdefault(key, {
+            "op": e.name, "op_shapes": str(e.input_shapes)[:160],
+            "autograd_node": node.name if node else None,
+            "forward_op": f.name if f else None,
+            "forward_shapes": str(f.input_shapes)[:160] if f else None,
+            "forward_stack": python_stack(f)[:6] if f else [],
+            "launches": 0})
+        entry["launches"] += n
+    return list(chains.values())
+
+
 def main() -> int:
     import torch
     from torch.autograd import DeviceType
@@ -80,6 +140,9 @@ def main() -> int:
         print("profile_torch_serve: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     train = "--train" in sys.argv[1:]
+    graphs = "--graphs" in sys.argv[1:]
+    stack = (sys.argv[sys.argv.index("--stack") + 1]
+             if "--stack" in sys.argv[1:] else None)
     prefetch = "--prefetch" in sys.argv[1:]
     bench = "--bench" in sys.argv[1:]
     if "--conv" in sys.argv[1:]:
@@ -122,10 +185,10 @@ def main() -> int:
             fed = device_prefetch(itertools.repeat((None, batch)), dev)
 
             def run():
-                train_step(state, next(fed)[2], gen)
+                train_step(state, next(fed)[2], gen, graphs=graphs)
         else:
             def run():
-                train_step(state, batch, gen)
+                train_step(state, batch, gen, graphs=graphs)
     elif bench:
         model = build_model(cfg, device=dev)
     else:
@@ -140,7 +203,7 @@ def main() -> int:
     if not train:
 
         def run():
-            forward_step(model, batch)
+            forward_step(model, batch, graphs=graphs)
     for _ in range(3):  # warm-up: kernel build, cuDNN plans, allocator
         run()
     torch.cuda.synchronize()
@@ -148,7 +211,8 @@ def main() -> int:
     reps = 10
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True,
+                                with_stack=stack is not None) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             run()
@@ -183,6 +247,7 @@ def main() -> int:
         (a for a in prof.key_averages() if a.self_cpu_time_total > 0),
         key=lambda a: -a.self_cpu_time_total,
     )[:12]
+    launched_by = kernel_sources(prof.events(), stack) if stack else None
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -191,7 +256,7 @@ def main() -> int:
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi[0] if smi else None,
         "mode": "train_step" if train else "serve",
-        "prefetch": prefetch, "bench_batch": bench,
+        "prefetch": prefetch, "bench_batch": bench, "graphs": graphs,
         "cuda_conv": os.environ.get("COVA_CUDA_CONV") == "1",
         "batch": b, "P": int(batch.boxes.shape[1]), "reps": reps,
         "wall_ms_per_batch": wall_ms / reps,
@@ -207,6 +272,7 @@ def main() -> int:
              a.self_device_time_total / 1e3 / reps] for a in ops],
         "top_host_ops_self_ms_per_batch": [
             [a.key, a.self_cpu_time_total / 1e3 / reps] for a in host],
+        **({"stack": stack, "launched_by": launched_by} if stack else {}),
     }))
     return 0
 

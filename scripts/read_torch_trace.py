@@ -9,7 +9,8 @@ rank-0 file is read. Prints one JSON line:
 
 * ``window_ms``: the traced window, from the first host or device event to
   the end of the last one; ``steps``: the train steps in it, counted as
-  Adam's ``Optimizer.step#Adam.step`` ranges;
+  ``train_step``'s host ranges (``cova_tpu_torch.train_step``: one a step,
+  eager or a CUDA graph's replay);
 * ``device_busy_ms`` and ``idle_share``: the union of the kernel, memcpy
   and memset intervals (``profile_torch_serve.union``) and the share of the
   window outside it; ``device_ms_by_category`` with
@@ -26,10 +27,12 @@ rank-0 file is read. Prints one JSON line:
 
 Every ``*_ms`` also comes divided by the steps, under ``per_step``.
 ``steady`` leaves out the first step (a new process's first steps also
-pay for cuDNN's plan search and the allocator's growth): from the end of
-the first Adam step to the end of the last, the device's busy ms a step
-and idle share, and the step times (Adam end to Adam end) as median,
-least and most.
+pay for cuDNN's plan search, the allocator's growth and the step graphs'
+captures): from the end of the first step's range to the end of the last,
+the device's busy ms a step and idle share, and the step times (range end
+to range end) as median, least and most. A step's range ends when the host
+has launched its work (a replayed step: one graph launch). The ranges are
+left out of the host ops, so the gaps still name the ops inside them.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from profile_torch_serve import category, union  # noqa: E402
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
-STEP_RANGE = "Optimizer.step#Adam.step"
+STEP_RANGE = "cova_tpu_torch.train_step"  # train/steps.py:STEP_RANGE
 PORT_KERNELS = (  # the __global__ functions of cova_tpu_torch/csrc
     "roi_pool_pyramid_kernel", "roi_pool_bins_kernel",
     "roi_pool_bounds_kernel", "roi_pool_bwd_kernel",
@@ -146,7 +149,7 @@ def read_trace(path: str) -> dict:
             k[0] += e["dur"]
             k[1] += 1
 
-    self_us, top = nest(host)
+    self_us, top = nest([e for e in host if e["name"] != STEP_RANGE])
     # The card's idle intervals inside the window, and which top-level
     # host ops run during them.
     gaps, t = [], lo
