@@ -1,0 +1,66 @@
+"""The weights of a run, made on the device from the seed.
+
+Every tensor of the model's state_dict (``reference.cova.param_shapes``),
+drawn in two large calls of one ``torch.Generator`` on the device, in
+float32 (the parameters' type; the program computes in bfloat16 from
+them): a normal for the convs, a uniform for the rest.
+
+* convs: He normal, std sqrt(2 / fan_in), the normal clipped at 2 std and
+  scaled as a truncated normal is (the port's initialiser);
+* Linear weights and biases: U(-1/sqrt(fan_in), 1/sqrt(fan_in));
+* BatchNorm: weight U(0.8, 1.2), bias U(-0.1, 0.1), running mean
+  U(-0.1, 0.1), running variance U(0.8, 1.2); the step count 0.
+
+The running statistics stand for a model that has trained: serving reads
+them.
+"""
+
+from __future__ import annotations
+
+import math
+from collections import OrderedDict
+from typing import Dict
+
+import torch
+
+from .pages import sub_seed
+from .reference.cova import param_shapes
+
+_TRUNC_STD = 0.87962566103423978  # std of a unit normal cut at +-2
+
+
+def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """name -> tensor on ``device``, for the configuration ``cfg``."""
+    dev = torch.device(device)
+    shapes = param_shapes(cfg)
+    gen = torch.Generator(device=dev).manual_seed(sub_seed(seed, 2))
+    n_conv = sum(math.prod(s[0]) for s in shapes.values() if s[1] == "conv")
+    n_rest = sum(math.prod(s[0]) for s in shapes.values()
+                 if s[1] not in ("conv", "bn_count"))
+    normal = torch.randn(n_conv, generator=gen, device=dev)
+    uniform = torch.rand(n_rest, generator=gen, device=dev)
+    out: Dict[str, torch.Tensor] = OrderedDict()
+    i_n = i_u = 0
+    for name, spec in shapes.items():
+        shape, kind = spec[0], spec[1]
+        size = math.prod(shape)
+        if kind == "bn_count":
+            out[name] = torch.zeros((), dtype=torch.int64, device=dev)
+            continue
+        if kind == "conv":
+            fan_in = math.prod(shape[1:])
+            std = math.sqrt(2.0 / fan_in) / _TRUNC_STD
+            t = normal[i_n:i_n + size].clamp(-2.0, 2.0) * std
+            i_n += size
+        else:
+            u = uniform[i_u:i_u + size]
+            i_u += size
+            if kind in ("linear_w", "linear_b"):
+                bound = 1.0 / math.sqrt(spec[2])
+                t = (2 * u - 1) * bound
+            elif kind in ("bn_w", "bn_var"):
+                t = 0.8 + 0.4 * u
+            else:  # bn_b, bn_mean
+                t = 0.2 * u - 0.1
+        out[name] = t.reshape(shape).clone()
+    return out
