@@ -2227,13 +2227,11 @@ def state_tensors(torch, state):
 def device_busy(torch, fn, n):
     """``fn`` run ``n`` times under ``torch.profiler`` (CPU and CUDA):
     device busy ms a run (the union of the kernels', copies' and sets'
-    intervals; the device side of annotated ranges, which spans them, is
-    left out), device events a run, and the port's kernels by name with
-    their launches."""
+    intervals; the device side of annotated ranges, the port's among them,
+    which spans them, is left out), device events a run, and the port's
+    kernels by name with their launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from cova_tpu_torch.train.steps import STEP_RANGE
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2244,7 +2242,7 @@ def device_busy(torch, fn, n):
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)
               and not re.fullmatch(r"[\w.]+#[\w.]+", e.name)
-              and e.name != STEP_RANGE]
+              and not e.name.startswith("cova_tpu_torch.")]
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:  # the union's length

@@ -8,6 +8,15 @@ step), sent to the device with ``non_blocking=True`` on a side stream, and
 handed over behind an event: the consumer's stream waits for the copy, the
 host does not. Up to ``size`` batches are in flight. On a CPU device the
 batches pass through untouched.
+
+Spans (``utils/tracing.py``): ``cova_tpu_torch.feed.source``, the wait on
+the upstream iterator (in ``fit`` and ``predict_pages``, ``DataPipeline``'s
+hand-off); ``feed.stage``, a batch's fields copied into the pinned rings,
+with ``feed.slot_wait`` inside it where a slot waits for its previous copy;
+``feed.h2d``, the non-blocking copies and the event on the side stream.
+Counters: ``feed.batches``, ``feed.bytes_staged``, and ``feed.slot_waits``
+(a slot whose previous copy had not ended when it was wanted: the host
+waits for that copy, inside ``feed.slot_wait``).
 """
 
 from __future__ import annotations
@@ -18,7 +27,10 @@ from typing import Iterable, Iterator, List, Tuple
 import numpy as np
 import torch
 
+from ..utils.tracing import count, span
 from .batching import Batch
+
+_END = object()
 
 
 class _Staging:
@@ -41,8 +53,10 @@ class _Staging:
             ring["slots"].append([buf, None])
         slot = ring["slots"][ring["next"] % len(ring["slots"])]
         ring["next"] += 1
-        if slot[1] is not None:
-            slot[1].synchronize()
+        if slot[1] is not None and not slot[1].query():
+            count("feed.slot_waits")
+            with span("cova_tpu_torch.feed.slot_wait"):
+                slot[1].synchronize()
         slot[0].copy_(src)
         return slot[0], slot
 
@@ -55,9 +69,17 @@ def device_prefetch(iterator: Iterable, device, size: int = 2) -> Iterator:
     Closing the generator closes ``iterator``."""
     device = torch.device(device)
     it = iter(iterator)
+
+    def pull():
+        with span("cova_tpu_torch.feed.source"):
+            item = next(it, _END)
+        if item is not _END:
+            count("feed.batches")
+        return item
+
     try:
         if device.type != "cuda":
-            for ids, batch in it:
+            for ids, batch in iter(pull, _END):
                 yield ids, batch, batch
             return
         side = torch.cuda.Stream(device)
@@ -66,16 +88,16 @@ def device_prefetch(iterator: Iterable, device, size: int = 2) -> Iterator:
 
         def put(item) -> None:
             ids, batch = item
-            tensors: List[torch.Tensor] = []
-            with torch.cuda.stream(side):
-                slots = []
-                for name, arr in zip(Batch._fields, batch):
-                    host, slot = staging.fill(name, arr)
-                    tensors.append(host.to(device, non_blocking=True))
-                    slots.append(slot)
+            with span("cova_tpu_torch.feed.stage"):
+                staged = [staging.fill(name, arr)
+                          for name, arr in zip(Batch._fields, batch)]
+            count("feed.bytes_staged", sum(h.nbytes for h, _ in staged))
+            with span("cova_tpu_torch.feed.h2d"), torch.cuda.stream(side):
+                tensors: List[torch.Tensor] = [
+                    host.to(device, non_blocking=True) for host, _ in staged]
                 done = torch.cuda.Event()
                 done.record(side)
-            for slot in slots:
+            for _, slot in staged:
                 slot[1] = done
             queue.append((ids, batch, Batch(*tensors), done))
 
@@ -87,7 +109,7 @@ def device_prefetch(iterator: Iterable, device, size: int = 2) -> Iterator:
                 t.record_stream(cur)  # allocated on the side stream
             return ids, batch, on_device
 
-        for item in it:
+        for item in iter(pull, _END):
             put(item)
             if len(queue) > size:
                 yield take()

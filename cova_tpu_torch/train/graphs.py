@@ -33,6 +33,12 @@ through ctypes on the current stream, which a capture records.
 * The kernel wrappers' launch counters (``ops/launches.py``) get the counts
   recorded during the capture at each replay, so they count what an eager
   run of the same steps counts.
+* Each call is counted (``utils/tracing.py``) as ``graph.eager.<kind>``,
+  ``graph.captures.<kind>`` or ``graph.replays.<kind>``, ``<kind>`` being
+  the key's first element, and runs inside the span
+  ``cova_tpu_torch.graph.eager``, ``.capture`` (the capture and the replay
+  that is its step) or ``.replay`` (the copy into the static inputs, the
+  replay, the launch counts and the output copies).
 
 Where graphs run is a rule of the runner, not a fallback (``enabled``):
 asked for (the entry points' ``graphs`` keyword, on by default) on a CUDA
@@ -49,6 +55,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from ..ops import launches
+from ..utils.tracing import count, span
 
 
 def enabled(graphs: bool, device, mesh=None) -> bool:
@@ -153,14 +160,22 @@ class StepGraphs:
             generators: Sequence[torch.Generator] = ()):
         """One step ``step(**inputs)`` of ``key``: eager the first time the
         key is seen, captured and replayed the second, replayed after."""
+        kind = key[0]
         graph = self.graphs.get(key)
         if graph is None:
             if key not in self.seen:
                 self.seen.add(key)
-                return step(**inputs)
-            graph = _Graph(step, inputs, generators)
-            self.graphs[key] = graph
-        return graph(inputs)
+                count(f"graph.eager.{kind}")
+                with span("cova_tpu_torch.graph.eager"):
+                    return step(**inputs)
+            count(f"graph.captures.{kind}")
+            with span("cova_tpu_torch.graph.capture"):
+                graph = _Graph(step, inputs, generators)
+                self.graphs[key] = graph
+                return graph(inputs)
+        count(f"graph.replays.{kind}")
+        with span("cova_tpu_torch.graph.replay"):
+            return graph(inputs)
 
     def capture_seconds(self) -> list:
         """Each graph's capture time, in seconds, in capture order."""

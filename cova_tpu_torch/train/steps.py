@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from ..data.batching import Batch
 from ..parallel.collectives import all_reduce_, broadcast_
 from ..parallel.mesh import MODEL_SHARDED
+from ..utils.tracing import span
 from . import graphs as step_graphs
 
 
@@ -204,6 +205,8 @@ def _train_body(state: TrainState, generator, **inputs) -> dict:
 # (a graph's replay runs no Adam on the host); scripts/read_torch_trace.py
 # counts steps by it.
 STEP_RANGE = "cova_tpu_torch.train_step"
+# The host range of every serving step (``forward_step``).
+FORWARD_RANGE = "cova_tpu_torch.forward_step"
 
 
 def train_step(state: TrainState, batch: Batch,
@@ -213,7 +216,7 @@ def train_step(state: TrainState, batch: Batch,
     Returns ``loss_sum``, ``n_correct`` and ``n_boxes`` as 0-d device
     tensors (this rank's rows). ``graphs``: through the state's train
     graph of this batch's shape where ``graphs.enabled`` allows it."""
-    with torch.profiler.record_function(STEP_RANGE):
+    with span(STEP_RANGE):
         state.model.train()
         inputs = batch_to_device(batch, state.device)
         inputs["labels"] = _to_device(batch.labels, state.device)
@@ -259,12 +262,13 @@ def forward_step(model, batch: Batch, graphs: bool = True):
     stats, dropout off). ``graphs``: through the model's forward graph of
     this batch's shape where ``graphs.enabled`` allows it (the caller
     passes False on a mesh)."""
-    device = next(model.parameters()).device
-    inputs = batch_to_device(batch, device)
-    if step_graphs.enabled(graphs, device):
-        key = step_graphs.step_key("forward", model, inputs)
-        return step_graphs.model_graphs(model).run(key, model, inputs)
-    return model(**inputs)
+    with span(FORWARD_RANGE):
+        device = next(model.parameters()).device
+        inputs = batch_to_device(batch, device)
+        if step_graphs.enabled(graphs, device):
+            key = step_graphs.step_key("forward", model, inputs)
+            return step_graphs.model_graphs(model).run(key, model, inputs)
+        return model(**inputs)
 
 
 def retrieval_metric(

@@ -30,8 +30,10 @@ call of ``fit`` runs (``start_epoch``, so also the first after ``--resume``)
 with ``torch.profiler``: the trace starts before the epoch's step loop and
 stops after its last step, before the epoch's metrics are fetched and before
 eval. Each rank writes ``<dir>/rank<r>.<ns>.pt.trace.json.gz``, which
-TensorBoard's profiler plugin and Perfetto open. That epoch's seconds
-include the profiler's overhead. The hook touches no RNG, batch or step.
+TensorBoard's profiler plugin and Perfetto open; the trace's metadata key
+``cova_tpu_torch.counters`` holds what the port's counters
+(``utils/tracing.py``) added over the epoch. That epoch's seconds include
+the profiler's overhead. The hook touches no RNG, batch or step.
 
 Eval runs one batch per call. The JAX package's VMEM fallback and eval
 chunking have no counterpart here.
@@ -39,6 +41,7 @@ chunking have no counterpart here.
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import Optional, Sequence, Tuple
@@ -50,6 +53,7 @@ from ..data.batching import Batch, bucket_batch, pad_batch
 from ..data.device_prefetch import device_prefetch
 from ..parallel.collectives import all_reduce_
 from ..parallel.distributed import rank
+from ..utils import tracing
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import MetricsLogger, print_and_log
 from .steps import TrainState, eval_step, train_step
@@ -70,10 +74,14 @@ def dropout_generator(seed: int, epoch: int, device, data_rank: int = 0,
     return generator.manual_seed(key)
 
 
+# The trace's metadata key of the counters the traced epoch added.
+COUNTERS_KEY = "cova_tpu_torch.counters"
+
+
 def epoch_profiler(profile_dir: str, device):
     """A started ``torch.profiler`` that traces the host, and the card when
     ``device`` is CUDA, into this rank's gzipped Chrome trace in
-    ``profile_dir`` when it is stopped."""
+    ``profile_dir`` when it is stopped (``stop_profiler``)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -83,6 +91,13 @@ def epoch_profiler(profile_dir: str, device):
             profile_dir, worker_name=f"rank{rank()}", use_gzip=True))
     prof.start()
     return prof
+
+
+def stop_profiler(prof, before: dict) -> None:
+    """Stop ``epoch_profiler``'s profiler, with the counters added since
+    ``before`` (a ``tracing.counters()``) in the trace's metadata."""
+    prof.add_metadata_json(COUNTERS_KEY, json.dumps(tracing.since(before)))
+    prof.stop()
 
 
 def run_eval(
@@ -231,6 +246,7 @@ def fit(
         )
         prof = (epoch_profiler(profile_dir, state.device)
                 if profile_dir and epoch == start_epoch else None)
+        before = tracing.counters() if prof is not None else None
         try:
             for _, _, on_device in device_prefetch(padded, state.device):
                 m = train_step(state, on_device, gen)
@@ -238,7 +254,7 @@ def fit(
                     [m["loss_sum"], m["n_correct"], m["n_boxes"]]))
         finally:
             if prof is not None:
-                prof.stop()
+                stop_profiler(prof, before)
         # One device-to-host fetch per epoch (after one all-reduce of the
         # three sums over the data group).
         loss_sum, n_correct, n_boxes = all_reduce_(

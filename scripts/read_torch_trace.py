@@ -22,8 +22,17 @@ rank-0 file is read. Prints one JSON line:
   ``host_threads``: each thread's top-level ops' busy ms;
 * ``device_gaps``: what the host does while the card idles: the idle time
   that each top-level host op covers (the 12 that cover most) and the idle
-  time that no host op covers (Python outside torch: the data pipeline's
-  hand-off, the loop's own bookkeeping).
+  time that no host op covers (Python outside torch: the loop's own
+  bookkeeping). The device feed's spans are top-level ops here:
+  ``cova_tpu_torch.feed.source`` is the wait for ``DataPipeline``'s
+  hand-off, ``cova_tpu_torch.feed.stage`` the copy of a batch into pinned
+  memory and ``cova_tpu_torch.feed.h2d`` the enqueue of its copies to the
+  card;
+* ``port_ranges``: host ms and count of each of the port's
+  ``cova_tpu_torch.*`` ranges (``utils/tracing.py``), nested ones too;
+  ``counters``: what the port's counters added over the traced epoch (the
+  trace's ``cova_tpu_torch.counters`` metadata), or null in a trace
+  without it.
 
 Every ``*_ms`` also comes divided by the steps, under ``per_step``.
 ``steady`` leaves out the first step (a new process's first steps also
@@ -31,8 +40,10 @@ pay for cuDNN's plan search, the allocator's growth and the step graphs'
 captures): from the end of the first step's range to the end of the last,
 the device's busy ms a step and idle share, and the step times (range end
 to range end) as median, least and most. A step's range ends when the host
-has launched its work (a replayed step: one graph launch). The ranges are
-left out of the host ops, so the gaps still name the ops inside them.
+has launched its work (a replayed step: one graph launch). The ranges of
+the steps and of their graph runs (every ``cova_tpu_torch.*`` range but the
+feed's) are left out of the host ops, so the gaps still name the ops
+inside them.
 """
 
 from __future__ import annotations
@@ -52,6 +63,9 @@ from profile_torch_serve import category, union  # noqa: E402
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 STEP_RANGE = "cova_tpu_torch.train_step"  # train/steps.py:STEP_RANGE
+PORT = "cova_tpu_torch."  # the port's ranges (utils/tracing.py)
+FEED = "cova_tpu_torch.feed."  # data/device_prefetch.py's ranges
+COUNTERS_KEY = "cova_tpu_torch.counters"  # train/trainer.py:COUNTERS_KEY
 PORT_KERNELS = (  # the __global__ functions of cova_tpu_torch/csrc
     "roi_pool_pyramid_kernel", "roi_pool_bins_kernel",
     "roi_pool_bounds_kernel", "roi_pool_bwd_kernel",
@@ -71,13 +85,22 @@ def trace_file(path: str) -> str:
     return found[-1]
 
 
-def load_events(path: str):
-    """The complete ('X') events of the trace."""
+def load_trace(path: str) -> dict:
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt") as f:
-        trace = json.load(f)
+        return json.load(f)
+
+
+def load_events(trace: dict):
+    """The complete ('X') events of a loaded trace."""
     return [e for e in trace["traceEvents"]
             if e.get("ph") == "X" and "dur" in e]
+
+
+def stepping(e) -> bool:
+    """A range of a step or of its graph run: one of the port's ranges
+    other than the feed's."""
+    return e["name"].startswith(PORT) and not e["name"].startswith(FEED)
 
 
 def kernel_name(name: str) -> str:
@@ -126,7 +149,8 @@ def overlap(spans, starts, lo, hi):
 
 def read_trace(path: str) -> dict:
     path = trace_file(path)
-    events = load_events(path)
+    trace = load_trace(path)
+    events = load_events(trace)
     dev = [e for e in events if e.get("cat") in DEVICE_CATS]
     host = [e for e in events if e.get("cat") in HOST_CATS]
     both = dev + host
@@ -149,7 +173,13 @@ def read_trace(path: str) -> dict:
             k[0] += e["dur"]
             k[1] += 1
 
-    self_us, top = nest([e for e in host if e["name"] != STEP_RANGE])
+    self_us, top = nest([e for e in host if not stepping(e)])
+    port = {}
+    for e in host:
+        if e["name"].startswith(PORT):
+            r = port.setdefault(e["name"], [0.0, 0])
+            r[0] += e["dur"]
+            r[1] += 1
     # The card's idle intervals inside the window, and which top-level
     # host ops run during them.
     gaps, t = [], lo
@@ -200,6 +230,9 @@ def read_trace(path: str) -> dict:
             "no_host_op_ms": ms(idle_us - covered),
             "by_top_level_host_op_ms": [[k, ms(v)]
                                         for k, v in top_n(in_gaps, 12)]},
+        "port_ranges": {k: {"ms": ms(v[0]), "calls": v[1]}
+                        for k, v in sorted(port.items())},
+        "counters": trace.get(COUNTERS_KEY),
     }
     if steps:
         out["per_step"] = {

@@ -19,6 +19,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from cova_tpu_torch.benchmarks import _first_boxes
 from cova_tpu_torch.config import Config
@@ -28,6 +29,7 @@ from cova_tpu_torch.data.synthetic import InMemoryWebDataset
 from cova_tpu_torch.models.cova import build_model
 from cova_tpu_torch.ops import bn_pool, launches, roi_pool
 from cova_tpu_torch.train import graphs, steps, trainer
+from cova_tpu_torch.utils import tracing
 from cova_tpu_torch.utils.checkpoint import CheckpointManager, load_checkpoint
 from cova_tpu_torch.utils.logging import MetricsLogger
 
@@ -365,6 +367,35 @@ def test_replays_add_the_captures_launch_counts(stand_in):
     assert runner.graphs[("k",)].launches == {
         **{k: 0 for k in eager}, "roi_pool_fwd": 2, "bn_relu_pool_fwd": 1}
     launches.zero()
+
+
+def test_runs_are_counted_and_spanned_by_kind(stand_in):
+    """Each call of ``StepGraphs.run`` counts as one eager run, capture or
+    replay of its key's kind, inside the span of the same name, and a
+    ``forward_step`` runs inside its own span."""
+    def step(x):
+        return {"y": x + 1}
+
+    runner = graphs.StepGraphs()
+    before = tracing.counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for i in range(4):
+            x = torch.full((2,), float(i))
+            assert torch.equal(runner.run(("forward",), step, {"x": x})["y"],
+                               x + 1)
+        runner.run(("eval",), step, {"x": x})
+        steps.forward_step(build_model(CFG, device="cpu"), _batch(16))
+    moved = tracing.since(before)
+    assert {k: n for k, n in moved.items()
+            if k.startswith("graph.") and n} == {
+        "graph.eager.forward": 2, "graph.captures.forward": 1,
+        "graph.replays.forward": 2, "graph.eager.eval": 1}
+    names = [e.name for e in prof.events()
+             if e.name.startswith("cova_tpu_torch.")]
+    run = "cova_tpu_torch.graph."
+    assert names == [run + "eager", run + "capture", run + "replay",
+                     run + "replay", run + "eager",
+                     steps.FORWARD_RANGE, run + "eager"]
 
 
 # -- the dropout generator -------------------------------------------------

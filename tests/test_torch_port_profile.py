@@ -119,6 +119,24 @@ def test_the_first_epoch_is_traced_into_one_rank0_file(runs):
     assert summary["host_ops_self_ms"]
 
 
+def test_the_trace_names_the_feed_and_holds_the_counters(runs):
+    """The device feed's wait on the pipeline's hand-off is a range of the
+    trace, one a step and one for the epoch's end, and the trace holds what
+    the counters added over the epoch."""
+    read = runpy.run_path(os.path.join(REPO, "scripts",
+                                       "read_torch_trace.py"))["read_trace"]
+    summary = read(runs["traced_dir"])
+    n_steps = summary["steps"]
+    ranges = summary["port_ranges"]
+    assert ranges["cova_tpu_torch.feed.source"]["calls"] == n_steps + 1
+    assert ranges["cova_tpu_torch.train_step"]["calls"] == n_steps
+    assert summary["counters"]["feed.batches"] == n_steps
+    assert "feed.bytes_staged" not in summary["counters"]  # nothing staged
+    # The step's range is left out of the gaps, so they name its ops.
+    gaps = dict(summary["device_gaps"]["by_top_level_host_op_ms"])
+    assert "cova_tpu_torch.train_step" not in gaps
+
+
 def test_a_resumed_run_traces_its_first_epoch(runs):
     seen = runs["resumed"]
     assert {e for e, _, _ in seen} == {2}
