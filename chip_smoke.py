@@ -195,7 +195,18 @@ The train phase also feeds batches through the device prefetcher and holds
 them against the host batches byte for byte. Every phase line carries its
 seconds.
 
-(Phases run in the order 1-3, 6, 4, 5, 9-16, 7, 8.) Then it prints the
+17. bn_act: K9 (``ops/bn_act.py``), eval-mode BN affine + residual +
+   ReLU in one pass, at ResNet-50's bn3 + BN'd residual + ReLU shape (x
+   and res [10, 320, 320, 256]), ResNet-18's bn1 + ReLU shape ([10, 320,
+   320, 64]) and its bn2 + identity residual + ReLU shape (the same), in
+   bf16 and f32: bit-exact against ``bn_act_plain``, ten timings each
+   (median and spread) beside the bytes bound (x, res and out once at 3.35
+   TB/s) and the plain version's time; and the K9 launches a batch of a
+   graphed ResNet-50-stem ``forward_step`` at B = 10 (9: its eager run,
+   capture and replay). ResNet-18's stem, the default, counts its 4 a
+   batch in the serve phase's ``predict`` and the graphs phase's forwards.
+
+(Phases run in the order 1-3, 17, 6, 4, 5, 9-16, 7, 8.) Then it prints the
 kernels' summary line (one row per TPU kernel, K1-K8), the ``nvidia-smi``
 line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without a GPU,
@@ -806,6 +817,89 @@ CONV_FMA_MS = {"conv3x3_fwd_f32": 3.7017, "conv3x3_fwd_stem_f32": 10.5970,
                "conv3x3_roll_fwd_stem_f32": 12.8414}
 
 
+# The K9 phase's shapes: (row, map shape, residual, ReLU).
+BN_ACT_SHAPES = (("r50_bn3_res_bn_relu", (B, IMG // 4, IMG // 4, 256), "bn",
+                  True),
+                 ("r18_bn1_relu", (B, IMG // 4, IMG // 4, 64), "none", True),
+                 ("r18_bn2_res_relu", (B, IMG // 4, IMG // 4, 64), "identity",
+                  True))
+# K9 launches a forward of each trunk: two BasicBlocks, three Bottlenecks.
+BN_ACT_PER_BATCH = {"resnet18_stem": 4, "resnet50_stem": 9}
+
+
+def phase_bn_act(torch, dev):
+    """K9 at the trunks' shapes against ``bn_act_plain`` and the bytes
+    bound; and its launches a batch of a graphed ResNet-50-stem forward."""
+    from cova_tpu_torch.config import Config
+    from cova_tpu_torch.data.batching import pad_batch
+    from cova_tpu_torch.data.pipeline import make_eval_pipeline
+    from cova_tpu_torch.data.synthetic import InMemoryWebDataset
+    from cova_tpu_torch.models.cova import build_model
+    from cova_tpu_torch.ops import bn_act as k9
+    from cova_tpu_torch.train.steps import forward_step
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    results = {}
+    for row, shape, res_kind, relu in BN_ACT_SHAPES:
+        c = shape[-1]
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            res = (None if res_kind == "none" else
+                   torch.randn(shape, generator=gen, device=dev).to(dtype))
+            coef = [torch.rand(c, generator=gen, device=dev) + 0.5,
+                    torch.randn(c, generator=gen, device=dev)]
+            rcoef = ([None, None] if res_kind != "bn" else
+                     [torch.rand(c, generator=gen, device=dev) + 0.5,
+                      torch.randn(c, generator=gen, device=dev)])
+            kw = dict(relu=relu, res=res, res_scale=rcoef[0],
+                      res_shift=rcoef[1])
+            got = k9.bn_act(x, *coef, **kw)
+            want = k9.bn_act_plain(x, *coef, **kw)
+            torch.cuda.synchronize()
+            need(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+                 f"bn_act {row} {dtype} differs from its plain version")
+            del got, want
+            n_bytes = x.numel() * x.element_size() * (
+                2 if res is None else 3) + 4 * c * (2 if res_kind != "bn"
+                                                     else 4)
+            n_ops = x.numel() * (3 if res is None else
+                                 (4 if res_kind == "identity" else 6))
+            bms, by = bound_ms(n_bytes, n_ops)
+            t = timings(torch, lambda: k9.bn_act(x, *coef, **kw), reps=20)
+            name = f"bn_act_{row}" + ("" if dtype == torch.bfloat16
+                                      else "_f32")
+            results[name] = dict(
+                **t, plain_ms=cuda_ms(
+                    torch, lambda: k9.bn_act_plain(x, *coef, **kw), reps=3),
+                bound_ms=bms, bound_by=by, bytes=n_bytes, operations=n_ops,
+                achieved_gb_per_s=n_bytes / t["ms"] / 1e6,
+                bound_share=bms / t["ms"],
+                plan=k9.launch_plan(x.numel(), c, True)._asdict(),
+                shape=list(shape), dtype=str(dtype))
+            del x, res
+            torch.cuda.empty_cache()
+
+    # ResNet-50's stem as its serving cell runs it: B = 10 at 1280^2
+    # through the forward graph (eager, capture + replay, replay).
+    cfg = Config(img_height=IMG, backbone="resnet50_stem")
+    ds = InMemoryWebDataset(B, IMG, seed=SEED, max_boxes=cfg.max_boxes)
+    batch = next(iter(make_eval_pipeline(cfg, ds).epoch(0)))[1]
+    batch = pad_batch(batch, B)[0]
+    model = build_model(cfg, device=dev)
+    calls = 3
+    before = launch_counts()
+    for _ in range(calls):
+        forward_step(model, batch)
+    torch.cuda.synchronize()
+    per_batch = (launch_counts()["bn_act"] - before["bn_act"]) / calls
+    need(per_batch == BN_ACT_PER_BATCH[cfg.backbone],
+         f"{cfg.backbone}: {per_batch} K9 launches a batch, expected "
+         f"{BN_ACT_PER_BATCH[cfg.backbone]}")
+    del model
+    torch.cuda.empty_cache()
+    return results, {cfg.backbone: per_batch}
+
+
 def conv_operands(torch, gen, shape, dtype, dev):
     b, h, w, c, o = shape
     x = torch.randn(b, h, w, c, generator=gen, device=dev).to(dtype)
@@ -1029,6 +1123,7 @@ def plain_ops():
     graph captured with the kernels would replay them)."""
     from cova_tpu_torch.models import cova as cova_mod
     from cova_tpu_torch.models import resnet as resnet_mod
+    from cova_tpu_torch.ops.bn_act import bn_act_plain
     from cova_tpu_torch.ops.bn_pool import bn_relu_pool_s2d_plain
     from cova_tpu_torch.ops.roi_pool import roi_pool_plain
 
@@ -1036,6 +1131,7 @@ def plain_ops():
     with mock.patch.object(cova_mod, "roi_pool", roi_pool_plain), \
             mock.patch.object(resnet_mod, "bn_relu_pool_s2d",
                               bn_relu_pool_s2d_plain), \
+            mock.patch.object(resnet_mod, "bn_act", bn_act_plain), \
             mock.patch.dict(os.environ, {"COVA_CUDA_CONV": "0"}):
         yield
     need(launch_counts() == before,
@@ -1110,10 +1206,15 @@ def phase_serve(torch, dev, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: n for k, n in launch_counts().items()
-                if k in ("roi_pool_fwd", "bn_relu_pool_fwd")}
+                if k in ("roi_pool_fwd", "bn_relu_pool_fwd", "bn_act")}
     need(rc == 0, f"predict returned {rc}")
     need(all(n > 0 for n in launches.values()),
          f"a kernel was not launched on the main path: {launches}")
+    n_batches = -(-MAX_PAGES // cfg.eval_batch_size)
+    k9_per_batch = launches["bn_act"] / n_batches
+    need(k9_per_batch == BN_ACT_PER_BATCH[cfg.backbone],
+         f"predict launched K9 {k9_per_batch} times a batch, expected "
+         f"{BN_ACT_PER_BATCH[cfg.backbone]}")
     files = os.listdir(out_dir)
     with open(os.path.join(out_dir, "retrieval.csv")) as f:
         n_picks = len(f.readlines()) - 1
@@ -1161,7 +1262,8 @@ def phase_serve(torch, dev, tmp):
     need(diff <= 0.05, f"kernel and plain logits differ by {diff}")
     need(agree == 1.0, f"retrieval picks agree on {agree:.1%} only")
     return launches, dict(
-        predict_wall_s=wall, pages=MAX_PAGES, ms_per_batch=ms_batch,
+        predict_wall_s=wall, pages=MAX_PAGES, batches=n_batches,
+        bn_act_launches_per_batch=k9_per_batch, ms_per_batch=ms_batch,
         ms_per_batch_eager=ms_batch_eager,
         pages_per_s=B / (ms_batch / 1e3), batch=B, P=P,
         plain_ops_batch_s=plain_s, logits_max_abs_diff_vs_plain=diff,
@@ -2253,7 +2355,7 @@ def device_busy(torch, fn, n):
     for e in events:
         for k in ("roi_pool_pyramid_kernel", "roi_pool_bins_kernel",
                   "roi_pool_bwd_kernel", "bn_relu_pool_fwd_kernel",
-                  "bn_relu_pool_bwd_kernel"):
+                  "bn_relu_pool_bwd_kernel", "bn_act_kernel"):
             if k in e.name:
                 port[k] = port.get(k, 0) + 1
     return dict(device_busy_ms=busy_us / 1e3 / n,
@@ -2266,9 +2368,11 @@ def device_busy(torch, fn, n):
 TRACED_WRAPPERS = {"roi_pool_bins_kernel": "roi_pool_fwd",
                    "bn_relu_pool_fwd_kernel": "bn_relu_pool_fwd",
                    "roi_pool_bwd_kernel": "roi_pool_bwd",
-                   "bn_relu_pool_bwd_kernel": "bn_relu_pool_bwd"}
-FORWARD_WRAPPERS = ("roi_pool_fwd", "bn_relu_pool_fwd")
-TRAIN_WRAPPERS = FORWARD_WRAPPERS + ("roi_pool_bwd", "bn_relu_pool_bwd")
+                   "bn_relu_pool_bwd_kernel": "bn_relu_pool_bwd",
+                   "bn_act_kernel": "bn_act"}
+FORWARD_WRAPPERS = ("roi_pool_fwd", "bn_relu_pool_fwd", "bn_act")
+TRAIN_WRAPPERS = ("roi_pool_fwd", "bn_relu_pool_fwd", "roi_pool_bwd",
+                  "bn_relu_pool_bwd")
 
 
 def paired_times(torch, name, make, step, wrappers,
@@ -2338,7 +2442,8 @@ def phase_graphs(torch, dev):
     a padded partial batch against the eager steps, bit for bit; (d) the
     launch counters of (a) and (c) against the eager runs'; (e) paired
     timings of the train step (1280^2 B = 5 and 8, 512^2 B = 5) and the
-    forward (B = 10 and 32)."""
+    forward (B = 10 and 32), whose profiled calls launch K9 4 times a
+    forward and never in a train step."""
     import numpy as np
 
     from cova_tpu_torch import benchmarks
@@ -2609,6 +2714,14 @@ def phase_graphs(torch, dev):
             bench32, benchmarks.INFER_SEED))), fwd),
     ):
         timing[name] = paired_times(torch, name, make, call, launched)
+        # Every config here has the default trunk; a train step never
+        # launches K9.
+        k9 = BN_ACT_PER_BATCH[cfg.backbone] if launched is FORWARD_WRAPPERS \
+            else 0
+        for row in timing[name]:
+            got = row["launches_counted"]["bn_act"] / GRAPH_PROFILED
+            need(got == k9, f"{name} (graphs={row['graphs']}): K9 launched "
+                            f"{got} times a step, expected {k9}")
     out["timing"] = timing
     out["timing_order"] = "eager, graphs, graphs, eager"
     return out
@@ -3080,14 +3193,16 @@ def main() -> int:
               "roi_pool_bwd_kernel")),
               **ptxas_report(reports.get("bn_pool", ""), (
                   "bn_relu_pool_fwd_kernel", "bn_relu_pool_bwd_kernel"))},
+          "bn_act": ptxas_report(reports.get("bn_act", ""),
+                                 ("bn_act_kernel",)),
           "sass": sass_report(_build, {
               "bn_pool": "bn_relu_pool_fwd_kernel",
               "roi_pool": "roi_pool_bwd_kernel"})})
 
     # Phase names as arguments run those phases alone (for work on one of
     # them); the summary and the ok line come only from a whole run.
-    phases = ("kernels", "conv_kernels", "serve", "train", "bench",
-              "export", "visualize", "sweep", "parallel", "corpus",
+    phases = ("kernels", "bn_act", "conv_kernels", "serve", "train",
+              "bench", "export", "visualize", "sweep", "parallel", "corpus",
               "profile", "graphs", "conv", "backbones")
     only = sys.argv[1:]
     need(all(p in phases for p in only), f"phases are {phases}")
@@ -3110,6 +3225,12 @@ def main() -> int:
         emit({"phase": "kernels", "seconds": seconds(),
               "names": sorted(k_results), "results": k_results,
               "checks": k_checks})
+    if wanted("bn_act"):
+        seconds()
+        k9_results, k9_launches = phase_bn_act(torch, dev)
+        emit({"phase": "bn_act", "seconds": seconds(),
+              "results": k9_results,
+              "launches_per_serving_batch": k9_launches})
     if wanted("conv_kernels"):
         conv_results, conv_checks = phase_conv_kernels(torch, dev)
         kernels.update(conv_results)

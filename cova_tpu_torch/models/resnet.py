@@ -40,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import BACKBONES
+from ..ops.bn_act import bn_act
 from ..ops.bn_pool import bn_relu_pool_s2d
 from ..ops.conv3x3 import conv3x3_auto
 from ..ops.conv_stem import nhwc_conv2d, stem_conv_s2d
@@ -82,11 +83,31 @@ def _downsample(inplanes: int, planes: int, stride: int):
     )
 
 
-def _residual(block, x: torch.Tensor) -> torch.Tensor:
+def _residual(block, x: torch.Tensor):
+    """The block's residual before its BN: (x, None), or the downsample
+    conv's output and the downsample's BN."""
     if block.downsample is None:
-        return x
+        return x, None
     conv, bn = block.downsample[0], block.downsample[1]
-    return bn(nhwc_conv2d(x, conv.weight, stride=block.stride))
+    return nhwc_conv2d(x, conv.weight, stride=block.stride), bn
+
+
+def _bn_relu(bn: MaskedBatchNorm, y: torch.Tensor, r=None,
+             res_bn=None) -> torch.Tensor:
+    """``relu(bn(y) + res_bn?(r)?)``. In training mode, whose BN takes
+    batch statistics, the modules run one by one; in eval mode each BN is
+    a fixed affine, and ``bn_act`` does the whole in one pass (K9 where no
+    gradient is needed)."""
+    if bn.training or (res_bn is not None and res_bn.training):
+        y = bn(y)
+        if r is not None:
+            y = y + (r if res_bn is None else res_bn(r))
+        return F.relu(y)
+    scale, shift = bn(y, return_coefficients=True)
+    rs, rh = (None, None) if res_bn is None else res_bn(
+        r, return_coefficients=True)
+    return bn_act(y, scale, shift, relu=True, res=r, res_scale=rs,
+                  res_shift=rh)
 
 
 class BasicBlock(nn.Module):
@@ -110,9 +131,9 @@ class BasicBlock(nn.Module):
         else:
             y = nhwc_conv2d(x, self.conv1.weight, stride=self.stride,
                             padding=1)
-        y = F.relu(self.bn1(y))
-        y = self.bn2(conv3x3_auto(y, _hwio(self.conv2)))
-        return F.relu(y + _residual(self, x))
+        y = _bn_relu(self.bn1, y)
+        y = conv3x3_auto(y, _hwio(self.conv2))
+        return _bn_relu(self.bn2, y, *_residual(self, x))
 
 
 class Bottleneck(nn.Module):
@@ -133,11 +154,11 @@ class Bottleneck(nn.Module):
         self.downsample = _downsample(inplanes, planes * 4, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(nhwc_conv2d(x, self.conv1.weight)))
+        y = _bn_relu(self.bn1, nhwc_conv2d(x, self.conv1.weight))
         y = nhwc_conv2d(y, self.conv2.weight, stride=self.stride, padding=1)
-        y = F.relu(self.bn2(y))
-        y = self.bn3(nhwc_conv2d(y, self.conv3.weight))
-        return F.relu(y + _residual(self, x))
+        y = _bn_relu(self.bn2, y)
+        y = nhwc_conv2d(y, self.conv3.weight)
+        return _bn_relu(self.bn3, y, *_residual(self, x))
 
 
 def _remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:

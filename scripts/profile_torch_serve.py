@@ -53,6 +53,7 @@ CATEGORIES = (  # first match wins
     ("bn_relu_pool (K5)", ("bn_relu_pool_fwd",)),
     ("roi_pool backward (K3)", ("roi_pool_bwd",)),
     ("bn_relu_pool backward (K6)", ("bn_relu_pool_bwd",)),
+    ("bn_act (K9)", ("bn_act_kernel",)),
     ("conv3x3_roll (K8)", ("conv3x3_roll_fwd",)),
     ("conv3x3 (K7)", ("conv3x3_fwd",)),
     ("convolution", ("conv", "cudnn", "implicit", "xmma", "fprop", "dgrad",

@@ -71,7 +71,8 @@ PORT_KERNELS = (  # the __global__ functions of cova_tpu_torch/csrc
     "roi_pool_bounds_kernel", "roi_pool_bwd_kernel",
     "bn_relu_pool_fwd_kernel", "bn_relu_pool_bwd_kernel",
     "conv3x3_fwd_bf16_kernel", "conv3x3_fwd_f32_kernel",
-    "conv3x3_roll_fwd_bf16_kernel", "conv3x3_roll_fwd_f32_kernel")
+    "conv3x3_roll_fwd_bf16_kernel", "conv3x3_roll_fwd_f32_kernel",
+    "bn_act_kernel")
 
 
 def trace_file(path: str) -> str:
