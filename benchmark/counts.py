@@ -3,10 +3,13 @@ bytes each hand-written kernel has to move, from a cell's shapes.
 
 Peaks are NVIDIA's H100 SXM data sheet: 989 TFLOP/s dense bf16 and
 3.35 TB/s of HBM3. FLOPs count a multiply-add as two, over the published
-layers: conv1 as the 7x7/2 conv on the screenshot (not the program's
-space-to-depth form), the trunk's blocks, and per valid box the bbox
-encoder, the attention's projections, scores and neighbour sum, and the
-decoder, for the forward that serving runs.
+layers, for the forward that serving runs: the trunk's, from its file
+(``reference/trunks/<backbone>.py``; the ResNet stems count conv1 as the
+7x7/2 conv on the screenshot, not the program's space-to-depth form), and
+per valid box the bbox encoder, the attention's projections, scores and
+neighbour sum, and the decoder. The trunk file also gives the feature
+map's channels and stride, and the bytes of the kernels that only that
+trunk runs (K9's).
 
 A kernel's bytes count each input byte read once and each output byte
 written once. The RoI pool reads the feature-map pixels that some bin of
@@ -22,37 +25,20 @@ from typing import Sequence
 
 import numpy as np
 
+from .reference.cova import trunk
+
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 STEM_CHANNELS = 64
 
 
-def _conv(h: int, w: int, cin: int, cout: int, k: int) -> float:
-    return 2.0 * h * w * cout * cin * k * k
-
-
 def trunk_flops(cfg: dict) -> float:
     """A page's trunk forward FLOPs at ``cfg["img_height"]``."""
-    s = cfg["img_height"]
-    h2, h4 = s // 2, s // 4
-    f = _conv(h2, h2, 3, STEM_CHANNELS, 7)
-    if cfg["backbone"] == "resnet18_stem":
-        f += 4 * _conv(h4, h4, 64, 64, 3)
-    elif cfg["backbone"] == "resnet50_stem":
-        cin = 64
-        for _ in range(3):
-            f += _conv(h4, h4, cin, 64, 1) + _conv(h4, h4, 64, 64, 3) \
-                + _conv(h4, h4, 64, 256, 1)
-            if cin != 256:
-                f += _conv(h4, h4, cin, 256, 1)
-            cin = 256
-    else:
-        raise ValueError(f"no FLOP count for {cfg['backbone']!r}")
-    return f
+    return float(trunk(cfg).flops(cfg))
 
 
 def trunk_channels(cfg: dict) -> int:
-    return 256 if cfg["backbone"] == "resnet50_stem" else 64
+    return trunk(cfg).CHANNELS
 
 
 def box_flops(cfg: dict) -> float:
@@ -112,7 +98,7 @@ def batch_shapes(pages: Sequence[dict], cfg: dict, padded_boxes: int) -> dict:
     padded box count, the feature map's sides and channels, the RoI bins a
     box, and the covered pixels and valid boxes of each page."""
     s = cfg["img_height"]
-    h = s // 4
+    h = s // trunk(cfg).STRIDE
     cov = []
     for pg in pages:
         xywh = np.asarray(pg["boxes_xywh"], np.float32)

@@ -7,8 +7,12 @@ step and its graph capture before the window opens.
 
 The window cycles over the pool for ``seconds``, handing each host batch
 to the port's device feed: a closed loop of one stream, a request being
-one batch from its hand-over to the feed until its logits are on the host
-as numpy. The harness's spans (``bench.window``, ``bench.feed``,
+one batch from its hand-over to the feed until its logits are read on the
+host as numpy. Each step's logits are copied to pinned host memory behind
+an event and read the mix's ``readback_lag`` steps later, so the host
+stages the next batches while the card computes. When the time is up no
+batch is handed over, every step sent is read, and then the clock is
+read. The harness's spans (``bench.window``, ``bench.feed``,
 ``bench.step``, ``bench.readback``) frame the calls.
 
 After the window the peak device memory is read, the program's state is
@@ -47,11 +51,56 @@ class _Window:
         self.step_counts: Dict[int, int] = collections.Counter()
         self.latencies_s: List[float] = []
         self.done_s: List[float] = []  # each request's end, from the start
+        self.host_s: Dict[str, float] = {}  # host seconds in each call
 
 
 def _next(it):
     with record_function("bench.feed"):
         return next(it, None)
+
+
+class _Answers:
+    """Each step's logits copied to the host behind an event on the
+    card's stream, and read ``lag`` steps later: the host goes on staging
+    and dispatching while the card works. Pinned buffers are kept by shape
+    and reused; on a CPU device the copy is plain."""
+
+    def __init__(self, dev: torch.device, lag: int):
+        self.dev, self.lag = dev, lag
+        self.free: Dict[tuple, List[torch.Tensor]] = {}
+        self.pending: collections.deque = collections.deque()
+
+    def reserve(self, shape: tuple, n: int) -> None:
+        """At least ``n`` free buffers for logits of ``shape``."""
+        bufs = self.free.setdefault(tuple(shape), [])
+        while len(bufs) < n:
+            bufs.append(torch.empty(shape, dtype=torch.float32,
+                                    pin_memory=self.dev.type == "cuda"))
+
+    def put(self, key, logits: torch.Tensor) -> None:
+        shape = tuple(logits.shape)
+        self.reserve(shape, 1)
+        buf = self.free[shape].pop()
+        done = None
+        if self.dev.type == "cuda":
+            buf.copy_(logits, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.dev))
+        else:
+            buf.copy_(logits)
+        self.pending.append((key, buf, done))
+
+    def due(self, drain: bool = False):
+        """The (key, logits as numpy) of the steps read now: all but the
+        newest ``lag``, or all of them with ``drain``."""
+        while self.pending and (drain or len(self.pending) > self.lag):
+            key, buf, done = self.pending.popleft()
+            with record_function("bench.readback"):
+                if done is not None:
+                    done.synchronize()
+                arr = buf.numpy().copy()
+            self.free[tuple(buf.shape)].append(buf)
+            yield key, arr
 
 
 def _serve(prog, cfg, traffic, pool, w, seconds, dev, start, mark):
@@ -60,18 +109,24 @@ def _serve(prog, cfg, traffic, pool, w, seconds, dev, start, mark):
     mark("host batches")
     model = prog.build_model(cfg, w, dev)
     mark("model")
+    lag = traffic.get("readback_lag", 0)
     schedule = list(range(nb)) * 2
+    shapes = set()
     for step, (_, _, batch) in enumerate(prog.feed(
             ((j, host[j]) for j in schedule), dev, traffic["prefetch"]), 1):
-        prog.serve(model, batch).cpu()
+        shapes.add(tuple(prog.serve(model, batch).cpu().shape))
         if step == 1:
             mark("first step")
     _sync(dev)
+    out = _Answers(dev, lag)
+    for shape in shapes:
+        out.reserve(shape, lag + 1)  # the steps in flight and one more
     mark("warm-up steps")
     start()
     win = _Window()
     answers = []
     handed: Dict[int, float] = {}
+    host_s = collections.Counter()
     t0 = time.perf_counter()
     end = t0 + seconds
 
@@ -82,26 +137,35 @@ def _serve(prog, cfg, traffic, pool, w, seconds, dev, start, mark):
             yield (k, k % nb), host[k % nb]
             k += 1
 
-    t_last = t0
-    with record_function("bench.window"):
-        it = iter(prog.feed(items(), dev, traffic["prefetch"]))
-        while True:
-            item = _next(it)
-            if item is None:
-                break
-            (k, j), _, batch = item
-            with record_function("bench.step"):
-                logits = prog.serve(model, batch)
-            with record_function("bench.readback"):
-                arr = logits.cpu().numpy()
-            t_last = time.perf_counter()
-            win.latencies_s.append(t_last - handed.pop(k))
-            win.done_s.append(t_last - t0)
+    def land(drain=False):
+        t = time.perf_counter()
+        for (k, j), arr in out.due(drain):
+            now = time.perf_counter()
+            win.latencies_s.append(now - handed.pop(k))
+            win.done_s.append(now - t0)
             answers.append((j, arr))
             win.steps += 1
             win.pages += traffic["batch_size"]
             win.step_counts[j] += 1
-    win.seconds = t_last - t0
+        host_s["readback"] += time.perf_counter() - t
+
+    with record_function("bench.window"):
+        it = iter(prog.feed(items(), dev, traffic["prefetch"]))
+        while True:
+            t = time.perf_counter()
+            item = _next(it)
+            host_s["feed"] += time.perf_counter() - t
+            if item is None:
+                break
+            key, _, batch = item
+            t = time.perf_counter()
+            with record_function("bench.step"):
+                out.put(key, prog.serve(model, batch))
+            host_s["step"] += time.perf_counter() - t
+            land()
+        land(drain=True)
+    win.seconds = time.perf_counter() - t0
+    win.host_s = dict(host_s)
 
     def verify():
         ref = reference.serve(w, [pool.batch_pages(j) for j in range(nb)],
@@ -110,7 +174,7 @@ def _serve(prog, cfg, traffic, pool, w, seconds, dev, start, mark):
                  for j in range(nb)]
         return check.serve_numbers(answers, ref, valid)
 
-    return win, [model, it], verify
+    return win, [model, it, out], verify
 
 
 def end_to_end(win: _Window, setup_s: float) -> Dict[str, float]:
@@ -216,6 +280,10 @@ def run_cell(cell: dict, cfg: dict, traffic: dict, limits: dict,
     lines = [f"set-up: {phases}"]
     lines += [f"window: {win.steps} steps, {win.pages} pages in "
              f"{win.seconds:.6f} s; set-up {setup_s:.6f} s"]
+    if win.steps:
+        lines += ["host ms a step: " + ", ".join(
+            f"{k} {v / win.steps * 1e3:.3f}"
+            for k, v in sorted(win.host_s.items()))]
     if win.done_s and win.seconds > 0:
         quarter = win.seconds / 4
         per = collections.Counter(min(int(t / quarter), 3)

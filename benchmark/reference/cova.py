@@ -3,13 +3,13 @@ forward in float32, with TF32 off.
 
 It follows the published model (the CoVA paper, ECNLP-5 at ACL 2022, and
 the reference repository kevalmorabia97/CoVA-Web-Object-Detection,
-``models.py``): a torchvision ResNet trunk cut after layer1 (conv1 7x7/2,
-BN, ReLU, max-pool 3x3/2, then BasicBlocks or Bottlenecks), RoIPool 3x3 in
-``torchvision.ops.roi_pool``'s semantics, a bbox encoder ``[x, y, w, h,
-w/h] -> Linear -> BN -> ReLU``, one graph-attention layer over the 2K
-DOM-preorder neighbours, and the decoder ``Dropout -> Linear -> BN -> ReLU
--> Dropout -> Linear`` (dropout is the identity in eval mode; every
-BatchNorm reads its running statistics).
+``models.py``): a trunk (the configuration's ``backbone``, in the file
+``trunks/<backbone>.py``: the paper's is torchvision's ResNet-18 cut after
+layer1), RoIPool 3x3 in ``torchvision.ops.roi_pool``'s semantics, a bbox
+encoder ``[x, y, w, h, w/h] -> Linear -> BN -> ReLU``, one graph-attention
+layer over the 2K DOM-preorder neighbours, and the decoder ``Dropout ->
+Linear -> BN -> ReLU -> Dropout -> Linear`` (dropout is the identity in
+eval mode; every BatchNorm reads its running statistics).
 
 It works from raw pages (uint8 screenshots, xywh boxes, labels) and a dict
 of weights and running statistics in the reference's state_dict names.
@@ -26,21 +26,26 @@ from __future__ import annotations
 
 import contextlib
 from collections import OrderedDict
+from types import ModuleType
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-# Trunk name -> (block kind, blocks in layer1).
-TRUNKS = {"resnet18_stem": ("basic", 2), "resnet50_stem": ("bottleneck", 3)}
+from . import trunks
+
 NEG_INF = -9e15  # the reference repository's mask value in the attention
 BN_EPS = 1e-5
 
 
+def trunk(cfg: dict) -> ModuleType:
+    """The configuration's trunk file (``trunks/<backbone>.py``)."""
+    return trunks.load(cfg["backbone"])
+
+
 def trunk_channels(cfg: dict) -> int:
-    kind, _ = TRUNKS[cfg["backbone"]]
-    return 256 if kind == "bottleneck" else 64
+    return trunk(cfg).CHANNELS
 
 
 def n_feat(cfg: dict) -> int:
@@ -51,59 +56,34 @@ def n_total(cfg: dict) -> int:
     return n_feat(cfg) + cfg["hidden_dim"]
 
 
+def bn_shapes(prefix: str, c: int) -> Dict[str, tuple]:
+    """The state_dict entries of a BatchNorm of ``c`` channels."""
+    return {prefix + ".weight": ((c,), "bn_w"),
+            prefix + ".bias": ((c,), "bn_b"),
+            prefix + ".running_mean": ((c,), "bn_mean"),
+            prefix + ".running_var": ((c,), "bn_var"),
+            prefix + ".num_batches_tracked": ((), "bn_count")}
+
+
 def param_shapes(cfg: dict) -> "OrderedDict[str, tuple]":
-    """name -> (shape, kind) of every tensor of the model's state_dict, in
-    the reference's names. Kinds: ``conv``, ``linear_w`` / ``linear_b``
-    (with the fan-in as a third entry), ``bn_w``, ``bn_b``, ``bn_mean``,
-    ``bn_var``, ``bn_count``."""
-    out: "OrderedDict[str, tuple]" = OrderedDict()
-
-    def bn(prefix, c):
-        out[prefix + ".weight"] = ((c,), "bn_w")
-        out[prefix + ".bias"] = ((c,), "bn_b")
-        out[prefix + ".running_mean"] = ((c,), "bn_mean")
-        out[prefix + ".running_var"] = ((c,), "bn_var")
-        out[prefix + ".num_batches_tracked"] = ((), "bn_count")
-
-    def conv(name, o, i, k):
-        out[name] = ((o, i, k, k), "conv")
+    """name -> (shape, kind[, extra]) of every tensor of the model's
+    state_dict, in the reference's names: the trunk's ``convnet.*``
+    entries, then the head's (kinds in ``weights.py``)."""
+    out: "OrderedDict[str, tuple]" = OrderedDict(trunk(cfg).param_shapes(cfg))
 
     def linear(prefix, o, i, bias=True):
         out[prefix + ".weight"] = ((o, i), "linear_w", i)
         if bias:
             out[prefix + ".bias"] = ((o,), "linear_b", i)
 
-    conv("convnet.0.weight", 64, 3, 7)
-    bn("convnet.1", 64)
-    kind, blocks = TRUNKS[cfg["backbone"]]
-    inplanes = 64
-    for b in range(blocks):
-        p = f"convnet.4.{b}"
-        if kind == "basic":
-            conv(p + ".conv1.weight", 64, inplanes, 3)
-            bn(p + ".bn1", 64)
-            conv(p + ".conv2.weight", 64, 64, 3)
-            bn(p + ".bn2", 64)
-            inplanes = 64
-        else:
-            conv(p + ".conv1.weight", 64, inplanes, 1)
-            bn(p + ".bn1", 64)
-            conv(p + ".conv2.weight", 64, 64, 3)
-            bn(p + ".bn2", 64)
-            conv(p + ".conv3.weight", 256, 64, 1)
-            bn(p + ".bn3", 256)
-            if inplanes != 256:
-                conv(p + ".downsample.0.weight", 256, inplanes, 1)
-                bn(p + ".downsample.1", 256)
-            inplanes = 256
     bbhd, hd = cfg["bbox_hidden_dim"], cfg["hidden_dim"]
     linear("bbox_feat_encoder.0", bbhd, 5)
-    bn("bbox_feat_encoder.1", bbhd)
+    out.update(bn_shapes("bbox_feat_encoder.1", bbhd))
     linear("gat.W_i", hd, n_feat(cfg), bias=False)
     linear("gat.W_j", hd, n_feat(cfg), bias=False)
     linear("gat.attention_layer", 1, 2 * hd)
     linear("decoder.1", n_total(cfg), n_total(cfg))
-    bn("decoder.2", n_total(cfg))
+    out.update(bn_shapes("decoder.2", n_total(cfg)))
     linear("decoder.5", cfg["n_classes"], n_total(cfg))
     return out
 
@@ -204,21 +184,26 @@ def float32_exact():
 
 
 class _Model:
-    """The model's eval-mode forward over a dict of f32 tensors ``w``
-    (weights and running statistics)."""
+    """The model's eval-mode forward over a dict ``w`` of the weights and
+    running statistics (floating tensors in f32). The trunk file's
+    ``forward`` gets this object: its weights and helpers."""
 
     def __init__(self, cfg: dict, w: Dict[str, torch.Tensor],
                  quant: Optional[str]):
         self.cfg, self.w, self.quant = cfg, w, quant
+        self.trunk = trunk(cfg)
+
+    def op(self, x: torch.Tensor) -> torch.Tensor:
+        """A conv or matmul operand, rounded as the control rounds it."""
+        return _op(x, self.quant)
 
     def conv(self, x, name, stride=1, padding=0):
-        return F.conv2d(_op(x, self.quant), _op(self.w[name], self.quant),
-                        stride=stride, padding=padding)
+        return F.conv2d(self.op(x), self.op(self.w[name]), stride=stride,
+                        padding=padding)
 
     def linear(self, x, prefix, bias=True):
         b = self.w[prefix + ".bias"] if bias else None
-        return F.linear(_op(x, self.quant),
-                        _op(self.w[prefix + ".weight"], self.quant), b)
+        return F.linear(self.op(x), self.op(self.w[prefix + ".weight"]), b)
 
     def bn2d(self, x, prefix):
         w = self.w
@@ -234,37 +219,10 @@ class _Model:
         return ((x - mean) / torch.sqrt(var + BN_EPS) * w[prefix + ".weight"]
                 + w[prefix + ".bias"])
 
-    def trunk(self, x):
-        y = self.conv(x, "convnet.0.weight", stride=2, padding=3)
-        y = F.relu(self.bn2d(y, "convnet.1"))
-        y = F.max_pool2d(y, 3, stride=2, padding=1)
-        kind, blocks = TRUNKS[self.cfg["backbone"]]
-        for b in range(blocks):
-            p = f"convnet.4.{b}"
-            if kind == "basic":
-                z = F.relu(self.bn2d(self.conv(y, p + ".conv1.weight",
-                                               padding=1), p + ".bn1"))
-                z = self.bn2d(self.conv(z, p + ".conv2.weight", padding=1),
-                              p + ".bn2")
-                y = F.relu(z + y)
-            else:
-                z = F.relu(self.bn2d(self.conv(y, p + ".conv1.weight"),
-                                     p + ".bn1"))
-                z = F.relu(self.bn2d(self.conv(z, p + ".conv2.weight",
-                                               padding=1), p + ".bn2"))
-                z = self.bn2d(self.conv(z, p + ".conv3.weight"), p + ".bn3")
-                if p + ".downsample.0.weight" in self.w:
-                    res = self.bn2d(self.conv(y, p + ".downsample.0.weight"),
-                                    p + ".downsample.1")
-                else:
-                    res = y
-                y = F.relu(z + res)
-        return y
-
     def __call__(self, t: dict) -> torch.Tensor:
         cfg = self.cfg
         x = t["images"].float().permute(0, 3, 1, 2) / 255.0
-        fm = self.trunk(x)  # [B, C, h, w]
+        fm = self.trunk.forward(self, x)  # [B, C, h, w]
         scale = fm.shape[2] / t["images"].shape[1]
         r = cfg["roi"]
         pooled = roi_pool(fm, t["boxes"], t["mask"], scale, r)  # [B,P,C,r,r]
@@ -405,8 +363,9 @@ def serve(weights: Dict[str, torch.Tensor], batches: Sequence[Sequence[dict]],
           cfg: dict, device, quant: Optional[str] = None) -> List[np.ndarray]:
     """Eval-mode logits [B, P, classes] of each batch of raw pages, as
     numpy float32."""
-    w = {n: t.to(device=device, dtype=torch.float32) for n, t in
-         weights.items()}
+    w = {n: t.to(device=device, dtype=torch.float32)
+         if t.is_floating_point() else t.to(device=device)
+         for n, t in weights.items()}
     model = _Model(cfg, w, quant=quant)
     out = []
     with torch.no_grad(), float32_exact():

@@ -32,11 +32,18 @@ def _imports(path):
 
 
 def test_reference_imports_nothing_of_the_program():
+    """The reference's files, its trunk files in ``trunks/`` among them."""
     ref_dir = os.path.join(ROOT, "benchmark", "reference")
-    for f in os.listdir(ref_dir):
-        if f.endswith(".py"):
-            mods = set(_imports(os.path.join(ref_dir, f)))
-            assert not mods & {"cova_tpu_torch", "cova_tpu", "jax", "flax"}
+    seen = set()
+    for dirpath, _, files in os.walk(ref_dir):
+        for f in files:
+            if f.endswith(".py"):
+                seen.add(os.path.relpath(os.path.join(dirpath, f), ref_dir))
+                mods = set(_imports(os.path.join(dirpath, f)))
+                assert not mods & {"cova_tpu_torch", "cova_tpu", "jax",
+                                   "jaxlib", "flax"}, f
+    assert {"cova.py", os.path.join("trunks", "resnet18_stem.py"),
+            os.path.join("trunks", "resnet50_stem.py")} <= seen
 
 
 def test_a_run_loads_no_jax():
