@@ -206,7 +206,17 @@ seconds.
    capture and replay). ResNet-18's stem, the default, counts its 4 a
    batch in the serve phase's ``predict`` and the graphs phase's forwards.
 
-(Phases run in the order 1-3, 17, 6, 4, 5, 9-16, 7, 8.) Then it prints the
+18. window_attn: K10 (``ops/window_attn.py``), the Swin trunk's
+   shifted-window attention, at its serving shape (qkv [10, 320, 320, 288]
+   bf16: B = 10 at 1280^2) for shift 0 and 3 against
+   ``window_attention_plain`` (within K10_TOL of the largest output), ten
+   timings each beside the bytes bound (the qkv read and the output
+   written once at 3.35 TB/s) and the plain version's time; the K10
+   launches a batch of a graphed ``swin_t_stage1`` ``forward_step`` at B =
+   10 (2: its eager run, capture and replay); and an eager forward under
+   the profiler, in which no ``aten::roll`` runs.
+
+(Phases run in the order 1-3, 17, 18, 6, 4, 5, 9-16, 7, 8.) Then it prints the
 kernels' summary line (one row per TPU kernel, K1-K8), the ``nvidia-smi``
 line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without a GPU,
@@ -898,6 +908,95 @@ def phase_bn_act(torch, dev):
     del model
     torch.cuda.empty_cache()
     return results, {cfg.backbone: per_batch}
+
+
+# K10 against its plain version: the largest gap within 2^-6 of the
+# largest output. The kernel rounds P to bf16 before P v (2^-9 a weight)
+# and its output to bf16 (2^-9), where the plain version stays f32.
+K10_TOL = 2.0 ** -6
+K10_PER_BATCH = 2
+
+
+def phase_window_attn(torch, dev):
+    """K10 at the Swin trunk's serving shape against
+    ``window_attention_plain`` and the bytes bound; its launches a batch of
+    a graphed ``swin_t_stage1`` forward; no roll in an eager forward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cova_tpu_torch.config import Config
+    from cova_tpu_torch.data.batching import pad_batch
+    from cova_tpu_torch.data.pipeline import make_eval_pipeline
+    from cova_tpu_torch.data.synthetic import InMemoryWebDataset
+    from cova_tpu_torch.models.cova import build_model
+    from cova_tpu_torch.ops import window_attn as k10
+    from cova_tpu_torch.train.steps import forward_step
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    side = IMG // 4
+    shape = (B, side, side, 3 * k10.HEADS * k10.HEAD_DIM)
+    windows = B * k10.padded_side(side) ** 2 // k10.WINDOW ** 2
+    n = k10.WINDOW ** 2
+    index = k10.relative_position_index().to(dev)
+    results = {}
+    for shift in (0, k10.WINDOW // 2):
+        qkv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        table = torch.randn((2 * k10.WINDOW - 1) ** 2, k10.HEADS,
+                            generator=gen, device=dev)
+        bias = k10.relative_bias(table, index)
+        pad = torch.randn(shape[-1], generator=gen, device=dev).to(
+            torch.bfloat16)
+        got = k10.window_attention(qkv, bias, pad, shift).float()
+        want = k10.window_attention_plain(qkv, bias, pad, shift).float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max() / want.abs().max())
+        need(err <= K10_TOL, f"window_attn shift {shift}: largest gap "
+             f"{err} of the largest output, over {K10_TOL}")
+        n_bytes = (qkv.numel() + got.numel()) * 2 + bias.numel() * 4 \
+            + pad.numel() * 2
+        n_ops = 2 * 2 * windows * n * n * shape[-1] // 3
+        del got, want
+        bms, by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+        t = timings(torch, lambda: k10.window_attention(qkv, bias, pad,
+                                                        shift), reps=20)
+        results[f"window_attn_shift{shift}"] = dict(
+            **t, max_rel_err=err, tolerance=K10_TOL,
+            plain_ms=cuda_ms(torch, lambda: k10.window_attention_plain(
+                qkv, bias, pad, shift), reps=2),
+            bound_ms=bms, bound_by=by, bytes=n_bytes, operations=n_ops,
+            achieved_gb_per_s=n_bytes / t["ms"] / 1e6,
+            bound_share=bms / t["ms"], shape=list(shape))
+        del qkv
+        torch.cuda.empty_cache()
+
+    # The trunk as its serving cell runs it: B = 10 at 1280^2 through the
+    # forward graph (eager, capture + replay, replay), then one eager
+    # forward under the profiler.
+    cfg = Config(img_height=IMG, backbone="swin_t_stage1")
+    ds = InMemoryWebDataset(B, IMG, seed=SEED, max_boxes=cfg.max_boxes)
+    batch = next(iter(make_eval_pipeline(cfg, ds).epoch(0)))[1]
+    batch = pad_batch(batch, B)[0]
+    model = build_model(cfg, device=dev)
+    calls = 3
+    before = launch_counts()
+    for _ in range(calls):
+        forward_step(model, batch)
+    torch.cuda.synchronize()
+    per_batch = (launch_counts()["window_attn"] - before["window_attn"]) \
+        / calls
+    need(per_batch == K10_PER_BATCH, f"swin_t_stage1: {per_batch} K10 "
+         f"launches a batch, expected {K10_PER_BATCH}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        forward_step(model, batch, graphs=False)
+        torch.cuda.synchronize()
+    ops = {e.key: e.count for e in prof.key_averages()}
+    need("aten::roll" not in ops, "a roll ran in the swin forward")
+    kernels = sorted(k for k in ops if "window_attn" in k)
+    need(kernels, "no window_attn kernel in the profiled forward")
+    del model
+    torch.cuda.empty_cache()
+    return results, {"swin_t_stage1": per_batch, "profiled_kernels": kernels,
+                     "pad_ops": ops.get("aten::constant_pad_nd", 0)}
 
 
 def conv_operands(torch, gen, shape, dtype, dev):
@@ -3201,9 +3300,9 @@ def main() -> int:
 
     # Phase names as arguments run those phases alone (for work on one of
     # them); the summary and the ok line come only from a whole run.
-    phases = ("kernels", "bn_act", "conv_kernels", "serve", "train",
-              "bench", "export", "visualize", "sweep", "parallel", "corpus",
-              "profile", "graphs", "conv", "backbones")
+    phases = ("kernels", "bn_act", "window_attn", "conv_kernels", "serve",
+              "train", "bench", "export", "visualize", "sweep", "parallel",
+              "corpus", "profile", "graphs", "conv", "backbones")
     only = sys.argv[1:]
     need(all(p in phases for p in only), f"phases are {phases}")
 
@@ -3231,6 +3330,12 @@ def main() -> int:
         emit({"phase": "bn_act", "seconds": seconds(),
               "results": k9_results,
               "launches_per_serving_batch": k9_launches})
+    if wanted("window_attn"):
+        seconds()
+        k10_results, k10_launches = phase_window_attn(torch, dev)
+        emit({"phase": "window_attn", "seconds": seconds(),
+              "results": k10_results,
+              "launches_per_serving_batch": k10_launches})
     if wanted("conv_kernels"):
         conv_results, conv_checks = phase_conv_kernels(torch, dev)
         kernels.update(conv_results)

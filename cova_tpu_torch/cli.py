@@ -3,9 +3,12 @@
 
 Counterpart of ``cova_tpu/cli.py`` with the same common flags, the same
 subcommands' artifacts and locations, plus ``--device``. ``--backbone``
-takes the whole registry of ``models.resnet.make_backbone``; ``train
---init_checkpoint`` initialises the backbone from a torchvision state_dict
-and ``--decode_cache`` keeps decoded screenshots on disk.
+takes the whole registry of ``models.resnet.make_backbone``: the ResNets
+and ``swin_t_stage1``, a Swin-T trunk cut after stage 1, which serves on
+the card and trains on the CPU (its attention kernel has no backward).
+``train --init_checkpoint`` initialises a ResNet backbone from a
+torchvision state_dict and ``--decode_cache`` keeps decoded screenshots on
+disk.
 
     python -m cova_tpu_torch.cli train --synthetic 50 -e 5
     python -m cova_tpu_torch.cli eval --synthetic 50
@@ -47,7 +50,7 @@ import os
 import sys
 from typing import Optional
 
-from .config import BACKBONES, CLASS_NAMES, N_FOLDS, Config
+from .config import BACKBONE_NAMES, CLASS_NAMES, N_FOLDS, Config
 
 
 def _add_common_flags(p: argparse.ArgumentParser):
@@ -74,7 +77,7 @@ def _add_common_flags(p: argparse.ArgumentParser):
     p.add_argument("--output_dir", default="results_5-Fold_CV")
     p.add_argument("--img_height", type=int, default=1280)
     p.add_argument("--backbone", default="resnet18_stem",
-                   choices=list(BACKBONES))
+                   choices=list(BACKBONE_NAMES))
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--num_devices", type=int, default=1,

@@ -36,6 +36,11 @@ BACKBONES = {
     "resnet50_stem": ((3, 4, 6, 3), 1, True),
     "resnet50": ((3, 4, 6, 3), 4, True),
 }
+# Backbones beside that registry, which the JAX package does not have, as
+# name -> (output channels, output stride): a Swin-T trunk cut after its
+# first stage (``models/swin.py``: 96 channels, 4x4 patches).
+SWIN_BACKBONES = {"swin_t_stage1": (96, 4)}
+BACKBONE_NAMES = (*BACKBONES, *SWIN_BACKBONES)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -120,11 +125,15 @@ class Config:
 
     @property
     def feature_stride(self) -> int:
+        if self.backbone in SWIN_BACKBONES:
+            return SWIN_BACKBONES[self.backbone][1]
         n_stages = 4 if not self.backbone.endswith("_stem") else 1
         return 4 * (2 ** (n_stages - 1))
 
     @property
     def backbone_channels(self) -> int:
+        if self.backbone in SWIN_BACKBONES:
+            return SWIN_BACKBONES[self.backbone][0]
         base = 64 if self.backbone.endswith("_stem") else 512
         if self.backbone.startswith("resnet50"):
             base *= 4  # bottleneck expansion

@@ -2,8 +2,9 @@
 
 Counterpart of ``cova_tpu/models/cova.py`` over padded batches:
 
-  * a ResNet backbone from ``models.resnet.make_backbone`` (by default the
-    truncated ResNet-18: stride 4, 64 channels) -> RoIPool(3x3) -> the
+  * a backbone from ``models.resnet.make_backbone`` (by default the
+    truncated ResNet-18: stride 4, 64 channels; or the Swin-T trunk of
+    ``models/swin.py``: stride 4, 96 channels) -> RoIPool(3x3) -> the
     visual feature per box (576-dim by default), flattened channel-major
     as the reference does;
   * bbox positional feature [x, y, w, h, aspect] -> Linear -> masked BN ->
@@ -206,8 +207,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Re-initialise every conv and Linear from ``generator`` with the JAX
     package's distributions: convs ``he_normal`` (fan_in, truncated
     normal), Linear weights and biases U(+-1/sqrt(fan_in)). BatchNorm keeps
-    its constant init (weight 1, bias 0), as there."""
+    its constant init (weight 1, bias 0), as there. A trunk that the JAX
+    package lacks (``swin_t_stage1``) takes its own published
+    initialisation (its ``init_weights``)."""
+    trunk_init = getattr(model.convnet, "init_weights", None)
+    if trunk_init is not None:
+        trunk_init(generator)
+    skip = set(model.convnet.modules()) if trunk_init is not None else ()
     for mod in model.modules():
+        if mod in skip:
+            continue
         if isinstance(mod, nn.Conv2d):
             he_normal_(mod.weight, generator)
         elif isinstance(mod, nn.Linear):

@@ -39,11 +39,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..config import BACKBONES
+from ..config import BACKBONE_NAMES, BACKBONES, SWIN_BACKBONES
 from ..ops.bn_act import bn_act
 from ..ops.bn_pool import bn_relu_pool_s2d
 from ..ops.conv3x3 import conv3x3_auto
 from ..ops.conv_stem import nhwc_conv2d, stem_conv_s2d
+from . import swin
 from .layers import MaskedBatchNorm, frozen_running_stats
 
 # flax's truncated_normal draws within +-2 standard deviations and divides
@@ -219,11 +220,14 @@ class ResNetBackbone(nn.Module):
         return x
 
 
-def make_backbone(name: str) -> ResNetBackbone:
-    """Backbone registry (``config.BACKBONES``)."""
+def make_backbone(name: str) -> nn.Module:
+    """Backbone registry: the ResNets of ``config.BACKBONES``, and the
+    Swin-T trunk of ``models/swin.py`` (``config.SWIN_BACKBONES``)."""
+    if name in SWIN_BACKBONES:
+        return swin.SwinStage1Backbone()
     if name not in BACKBONES:
         raise ValueError(
-            f"unknown backbone {name!r}; options: {list(BACKBONES)}"
+            f"unknown backbone {name!r}; options: {list(BACKBONE_NAMES)}"
         )
     stage_sizes, n_stages, bottleneck = BACKBONES[name]
     block_cls = Bottleneck if bottleneck else BasicBlock

@@ -68,6 +68,17 @@ BACKBONE_TO_WEIGHTS = {
 }
 
 
+def _weights_key(backbone: str) -> str:
+    """The registry entry ``backbone`` initialises from; a ValueError for a
+    backbone that has none."""
+    if backbone not in BACKBONE_TO_WEIGHTS:
+        raise ValueError(
+            f"no pretrained file for backbone {backbone!r}: the registry pins "
+            "torchvision's ResNets, and no released checkpoint of it is in "
+            "the repository")
+    return BACKBONE_TO_WEIGHTS[backbone]
+
+
 def sha256_of(path: str, chunk: int = 1 << 20) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:
@@ -95,6 +106,7 @@ def verify_checkpoint(path: str, weights_key: str) -> str:
 def backbone_state_dict(backbone: str, sd: Mapping[str, Any]):
     """The entries of a torchvision ResNet state_dict that ``backbone``
     keeps, under the backbone's own keys. Fails on a missing entry."""
+    _weights_key(backbone)
     stage_sizes, n_stages, bottleneck = BACKBONES[backbone]
     out = collections.OrderedDict()
 
@@ -130,7 +142,7 @@ def load_verified_backbone(backbone: str, path: str, verify: bool = True):
     with torchvision's key layout under another name); missing keys still
     fail loudly.
     """
-    weights_key = BACKBONE_TO_WEIGHTS[backbone]
+    weights_key = _weights_key(backbone)
     if verify:
         verify_checkpoint(path, weights_key)
     sd = load_state_dict_file(path)
@@ -148,7 +160,7 @@ def load_verified_backbone(backbone: str, path: str, verify: bool = True):
 def resolve_checkpoint(backbone: str, search_dirs=(".", "weights")) -> str:
     """The canonical weights file for ``backbone`` in ``search_dirs``;
     raises FileNotFoundError with the recipe if it is absent."""
-    entry = PRETRAINED_REGISTRY[BACKBONE_TO_WEIGHTS[backbone]]
+    entry = PRETRAINED_REGISTRY[_weights_key(backbone)]
     for d in search_dirs:
         p = os.path.join(d, entry["file"])
         if os.path.exists(p):
@@ -165,7 +177,7 @@ def init_backbone_from_checkpoint(model, backbone: str, path: str) -> None:
     """``cli train --init_checkpoint``: the canonical file name is held to
     its sha256 pin, any other name loads with a note; then the backbone's
     tensors are replaced (strict) and the load is reported."""
-    canonical = PRETRAINED_REGISTRY[BACKBONE_TO_WEIGHTS[backbone]]["file"]
+    canonical = PRETRAINED_REGISTRY[_weights_key(backbone)]["file"]
     is_canonical = os.path.basename(path) == canonical
     if not is_canonical:
         print(

@@ -75,6 +75,11 @@ def state_dict_from_jax(
         put(f"{prefix}.running_var", s["var"])
         sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
+    if cfg.backbone not in BACKBONES:
+        raise ValueError(
+            f"state_dict_from_jax: the JAX package has no backbone "
+            f"{cfg.backbone!r}, and no released file of it is in the "
+            "repository")
     cp, cs = params["convnet"], batch_stats["convnet"]
     stage_sizes, n_stages, bottleneck = BACKBONES[cfg.backbone]
     block_name = "Bottleneck" if bottleneck else "BasicBlock"
