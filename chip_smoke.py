@@ -216,9 +216,21 @@ seconds.
    10 (2: its eager run, capture and replay); and an eager forward under
    the profiler, in which no ``aten::roll`` runs.
 
-(Phases run in the order 1-3, 17, 18, 6, 4, 5, 9-16, 7, 8.) Then it prints the
-kernels' summary line (one row per TPU kernel, K1-K8), the ``nvidia-smi``
-line, and, last,
+19. layernorm: K11 (``ops/layernorm.py``), the Swin trunk's LayerNorm with
+   the residual add before it folded in, at its serving map ([10, 320, 320,
+   96] bf16) plain, with a residual, and with a residual and its sum
+   written: the sum bit-exact and the output within one bf16 step of the
+   largest |y| against ``layernorm_plain``, ten timings each beside the
+   bytes bound (2, 3 and 4 maps at 3.35 TB/s), the plain version's time and
+   ``F.layer_norm``'s (``library_ms``; the port never calls it), and the
+   six a batch beside their 19 maps; then the K11 launches a batch of a
+   graphed ``swin_t_stage1`` ``forward_step`` at B = 10 (6) and three
+   replays under the profiler, whose trace must hold K11 six times a batch
+   and no PyTorch LayerNorm kernel, with device ms a batch by kernel.
+
+(Phases run in the order 1-3, 17, 18, 19, 6, 4, 5, 9-16, 7, 8.) Then it
+prints the kernels' summary line (one row per TPU kernel, K1-K8), the
+``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without a GPU,
 or outside the repo, it exits non-zero before printing any result.
 """
@@ -997,6 +1009,154 @@ def phase_window_attn(torch, dev):
     torch.cuda.empty_cache()
     return results, {"swin_t_stage1": per_batch, "profiled_kernels": kernels,
                      "pad_ops": ops.get("aten::constant_pad_nd", 0)}
+
+
+K11_PER_BATCH = 6
+K11_EPS = 1e-5  # nn.LayerNorm's default, the trunk's
+# (row, residual, sum written, maps read and written)
+K11_MODES = (("plain", False, False, 2), ("res", True, False, 3),
+             ("res_sum", True, True, 4))
+# The trunk's six a batch by mode: patch_embed.norm and block 1's norm1
+# plain, three with the sum written, norm0 with a residual and no sum.
+K11_TRUNK = {"plain": 2, "res_sum": 3, "res": 1}
+
+
+def bf16_step(top: float) -> float:
+    """One bf16 step (2^-7 of the binade) at |value| ``top``: the most two
+    roundings to bf16 of f32 numbers a few f32 steps apart can differ."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def kernel_ms(prof, n):
+    """Device ms and launches a run of each kernel, copy and set in a
+    profile of ``n`` runs, by name."""
+    rows = {}
+    for e in device_events(prof):
+        row = rows.setdefault(e.name, [0.0, 0])
+        row[0] += e.time_range.end - e.time_range.start
+        row[1] += 1
+    return {k: dict(ms=us / 1e3 / n, launches=count / n)
+            for k, (us, count) in rows.items()}
+
+
+def phase_layernorm(torch, dev):
+    """K11 at the Swin trunk's serving map against ``layernorm_plain``, its
+    bytes bound and ``F.layer_norm``; its launches a batch of a graphed
+    ``swin_t_stage1`` forward; no PyTorch LayerNorm kernel in the trace."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from cova_tpu_torch.config import Config
+    from cova_tpu_torch.data.batching import pad_batch
+    from cova_tpu_torch.data.pipeline import make_eval_pipeline
+    from cova_tpu_torch.data.synthetic import InMemoryWebDataset
+    from cova_tpu_torch.models.cova import build_model
+    from cova_tpu_torch.ops import layernorm as k11
+    from cova_tpu_torch.train.steps import forward_step
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    c = k11.CHANNELS
+    shape = (B, IMG // 4, IMG // 4, c)
+    x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(
+        torch.bfloat16)
+    res = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.rand(c, generator=gen, device=dev) * 0.4 + 0.8
+    b = torch.rand(c, generator=gen, device=dev) * 0.2 - 0.1
+    wb = (w.to(torch.bfloat16), b.to(torch.bfloat16))
+    n_map = x.numel() * x.element_size()
+    library_ms = cuda_ms(torch, lambda: F.layer_norm(
+        x, (c,), *wb, K11_EPS), reps=5)
+    results = {}
+    for row, with_res, sum_out, maps in K11_MODES:
+        r = res if with_res else None
+        got = k11.layernorm(x, w, b, K11_EPS, r, sum_out=sum_out)
+        want = k11.layernorm_plain(x, w, b, K11_EPS, r, sum_out=sum_out)
+        torch.cuda.synchronize()
+        if sum_out:
+            (got, got_s), (want, want_s) = got, want
+            need(torch.equal(got_s.view(torch.int16),
+                             want_s.view(torch.int16)),
+                 f"layernorm {row}: the sum differs from x + res")
+            del got_s, want_s
+        top = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        need(err <= bf16_step(top), f"layernorm {row}: largest gap {err}, "
+             f"over one bf16 step at {top}")
+        not_equal = float((got != want).float().mean())
+        del got, want
+        n_bytes = maps * n_map + 2 * c * 4
+        # An element: the sum, a centred square (3), the normalisation (4),
+        # and the residual's add.
+        n_ops = x.numel() * (8 + int(with_res))
+        bms, by = bound_ms(n_bytes, n_ops)
+        t = timings(torch, lambda: k11.layernorm(
+            x, w, b, K11_EPS, r, sum_out=sum_out), reps=20)
+        results[f"layernorm_{row}"] = dict(
+            **t, max_abs_err=err, largest=top, tolerance=bf16_step(top),
+            not_bit_equal=not_equal,
+            plain_ms=cuda_ms(torch, lambda: k11.layernorm_plain(
+                x, w, b, K11_EPS, r, sum_out=sum_out), reps=5),
+            library_ms=library_ms, bound_ms=bms, bound_by=by, bytes=n_bytes,
+            operations=n_ops, achieved_gb_per_s=n_bytes / t["ms"] / 1e6,
+            bound_share=bms / t["ms"], shape=list(shape))
+        torch.cuda.empty_cache()
+    trunk_ms = sum(n * results[f"layernorm_{row}"]["ms"]
+                   for row, n in K11_TRUNK.items())
+    trunk_bound = sum(n * results[f"layernorm_{row}"]["bound_ms"]
+                      for row, n in K11_TRUNK.items())
+    results["trunk_batch"] = dict(
+        ms=trunk_ms, bound_ms=trunk_bound, bound_share=trunk_bound / trunk_ms,
+        launches=sum(K11_TRUNK.values()),
+        plain_ms=sum(n * results[f"layernorm_{row}"]["plain_ms"]
+                     for row, n in K11_TRUNK.items()))
+    del x, res
+    torch.cuda.empty_cache()
+
+    # The trunk as its serving cell runs it: B = 10 at 1280^2 through the
+    # forward graph (eager, capture + replay, replay), then three replays
+    # under the profiler.
+    cfg = Config(img_height=IMG, backbone="swin_t_stage1")
+    ds = InMemoryWebDataset(B, IMG, seed=SEED, max_boxes=cfg.max_boxes)
+    batch = next(iter(make_eval_pipeline(cfg, ds).epoch(0)))[1]
+    batch = pad_batch(batch, B)[0]
+    model = build_model(cfg, device=dev)
+    calls = 3
+    before = launch_counts()
+    for _ in range(calls):
+        forward_step(model, batch)
+    torch.cuda.synchronize()
+    per_batch = (launch_counts()["layernorm"] - before["layernorm"]) / calls
+    need(per_batch == K11_PER_BATCH, f"swin_t_stage1: {per_batch} K11 "
+         f"launches a batch, expected {K11_PER_BATCH}")
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            forward_step(model, batch)
+        torch.cuda.synchronize()
+    counted = (launch_counts()["layernorm"] - before["layernorm"]) / calls
+    kernels = kernel_ms(prof, calls)
+    k11_traced = sum(v["launches"] for k, v in kernels.items()
+                     if "swin_layernorm_kernel" in k)
+    need(k11_traced == counted == K11_PER_BATCH,
+         f"swin_t_stage1 graphed: K11 {k11_traced} times a batch in the "
+         f"trace, {counted} counted, expected {K11_PER_BATCH}")
+    torch_ln = sorted(k for k in kernels if "layer_norm" in k.lower())
+    need(not torch_ln, f"PyTorch LayerNorm kernels in the forward: "
+         f"{torch_ln}")
+    del model
+    torch.cuda.empty_cache()
+    top = sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:12]
+    return results, {
+        "swin_t_stage1": per_batch, "traced_per_batch": k11_traced,
+        "device_ms_per_batch": sum(v["ms"] for v in kernels.values()),
+        "k11_ms_per_batch": sum(v["ms"] for k, v in kernels.items()
+                                if "swin_layernorm_kernel" in k),
+        "elementwise_ms_per_batch": sum(
+            v["ms"] for k, v in kernels.items() if "elementwise_kernel" in k),
+        "kernels_by_ms": {k[:90]: v for k, v in top}}
 
 
 def conv_operands(torch, gen, shape, dtype, dev):
@@ -2425,13 +2585,23 @@ def state_tensors(torch, state):
     return out
 
 
+def device_events(prof):
+    """A profile's kernels, copies and sets: the device side of annotated
+    ranges, the port's among them, which spans them, is left out."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not re.fullmatch(r"[\w.]+#[\w.]+", e.name)
+            and not e.name.startswith("cova_tpu_torch.")]
+
+
 def device_busy(torch, fn, n):
     """``fn`` run ``n`` times under ``torch.profiler`` (CPU and CUDA):
     device busy ms a run (the union of the kernels', copies' and sets'
     intervals; the device side of annotated ranges, the port's among them,
     which spans them, is left out), device events a run, and the port's
     kernels by name with their launches."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2440,10 +2610,7 @@ def device_busy(torch, fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and not re.fullmatch(r"[\w.]+#[\w.]+", e.name)
-              and not e.name.startswith("cova_tpu_torch.")]
+    events = device_events(prof)
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:  # the union's length
@@ -3294,13 +3461,16 @@ def main() -> int:
                   "bn_relu_pool_fwd_kernel", "bn_relu_pool_bwd_kernel"))},
           "bn_act": ptxas_report(reports.get("bn_act", ""),
                                  ("bn_act_kernel",)),
+          "layernorm": ptxas_report(reports.get("layernorm", ""),
+                                    ("swin_layernorm_kernel",)),
           "sass": sass_report(_build, {
               "bn_pool": "bn_relu_pool_fwd_kernel",
               "roi_pool": "roi_pool_bwd_kernel"})})
 
     # Phase names as arguments run those phases alone (for work on one of
     # them); the summary and the ok line come only from a whole run.
-    phases = ("kernels", "bn_act", "window_attn", "conv_kernels", "serve",
+    phases = ("kernels", "bn_act", "window_attn", "layernorm",
+              "conv_kernels", "serve",
               "train", "bench", "export", "visualize", "sweep", "parallel",
               "corpus", "profile", "graphs", "conv", "backbones")
     only = sys.argv[1:]
@@ -3336,6 +3506,12 @@ def main() -> int:
         emit({"phase": "window_attn", "seconds": seconds(),
               "results": k10_results,
               "launches_per_serving_batch": k10_launches})
+    if wanted("layernorm"):
+        seconds()
+        k11_results, k11_launches = phase_layernorm(torch, dev)
+        emit({"phase": "layernorm", "seconds": seconds(),
+              "results": k11_results, "nvidia_smi": smi,
+              "serving_batch": k11_launches})
     if wanted("conv_kernels"):
         conv_results, conv_checks = phase_conv_kernels(torch, dev)
         kernels.update(conv_results)

@@ -21,11 +21,14 @@ ResNet-18 (after layer1). Published widths:
 * ``norm0``, a LayerNorm over the 96 channels of the stage's output.
 
 Drop-path is the identity in eval mode and is left out. Compute is in the
-model's compute dtype (bf16 on the card: K10 takes bf16 only); the
-LayerNorms' statistics, the softmax and the matmuls' sums are f32.
+model's compute dtype (bf16 on the card: K10 and K11 take bf16 only); the
+LayerNorms' statistics, the softmax and the matmuls' sums are f32. Each
+residual add is taken by the LayerNorm that follows it (``ops.layernorm``;
+K11 on the card), so a block hands its MLP output on unadded.
 Parameters stay f32 and are cast at use, as in the other trunks. Module and
 state_dict names are the published code's (under ``convnet.`` in CoVA).
-K10 has no backward, so on the card the trunk serves; it trains on the CPU.
+K10 and K11 have no backward, so on the card the trunk serves; it trains on
+the CPU.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import SWIN_BACKBONES
+from ..ops.layernorm import layernorm
 from ..ops.window_attn import (relative_bias, relative_position_index,
                                window_attention)
 
@@ -47,10 +51,10 @@ def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, lin.weight.to(x.dtype), bias)
 
 
-def _norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """A LayerNorm in x's dtype (its statistics in f32)."""
-    return F.layer_norm(x, ln.normalized_shape, ln.weight.to(x.dtype),
-                        ln.bias.to(x.dtype), ln.eps)
+def _norm(ln: nn.LayerNorm, x: torch.Tensor, res=None, sum_out=False):
+    """``ln(x + res)`` in x's dtype (its statistics in f32), and with
+    ``sum_out`` the sum too: K11 on the card."""
+    return layernorm(x, ln.weight, ln.bias, ln.eps, res, sum_out=sum_out)
 
 
 class PatchEmbed(nn.Module):
@@ -93,16 +97,24 @@ class SwinBlock(nn.Module):
         self.norm2 = nn.LayerNorm(DIM)
         self.mlp = Mlp()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, branch=None):
+        """The block on the stream ``x + branch`` (``branch``: the last
+        block's MLP output, not yet added; None for the first block);
+        returns the stream after the attention's add and the MLP's output,
+        for the next LayerNorm to add."""
         attn = self.attn
-        qkv = _linear(attn.qkv, _norm(self.norm1, x))
+        if branch is None:
+            n = _norm(self.norm1, x)
+        else:
+            n, x = _norm(self.norm1, x, branch, sum_out=True)
+        qkv = _linear(attn.qkv, n)
         bias = relative_bias(attn.relative_position_bias_table,
                              attn.relative_position_index)
         a = window_attention(qkv, bias, attn.qkv.bias.to(qkv.dtype),
                              self.shift)
-        x = x + _linear(attn.proj, a)
-        h = F.gelu(_linear(self.mlp.fc1, _norm(self.norm2, x)))
-        return x + _linear(self.mlp.fc2, h)
+        n, x = _norm(self.norm2, x, _linear(attn.proj, a), sum_out=True)
+        h = F.gelu(_linear(self.mlp.fc1, n))
+        return x, _linear(self.mlp.fc2, h)
 
 
 class BasicLayer(nn.Module):
@@ -134,10 +146,10 @@ class SwinStage1Backbone(nn.Module):
                                  f"divide by {PATCH}; got {h}x{w}")
             x = x.reshape(b, h // PATCH, PATCH, w // PATCH, PATCH, 3).permute(
                 0, 1, 3, 2, 4, 5).reshape(b, h // PATCH, w // PATCH, -1)
-        x = self.patch_embed(x)
+        x, branch = self.patch_embed(x), None
         for block in self.layers[0].blocks:
-            x = block(x)
-        return _norm(self.norm0, x).contiguous()
+            x, branch = block(x, branch)
+        return _norm(self.norm0, x, branch).contiguous()
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

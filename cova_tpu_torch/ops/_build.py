@@ -27,7 +27,8 @@ from typing import Dict, Sequence, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("roi_pool", "bn_pool", "conv3x3", "bn_act", "window_attn")
+SOURCES = ("roi_pool", "bn_pool", "conv3x3", "bn_act", "window_attn",
+           "layernorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import bn_act, bn_pool, conv3x3, roi_pool, window_attn
+from . import bn_act, bn_pool, conv3x3, layernorm, roi_pool, window_attn
 
 # Every kernel wrapper that counts its launches, by kernel name: the
 # wrappers themselves, not their module attributes, so that a caller that
@@ -25,7 +25,8 @@ WRAPPERS = {"roi_pool_fwd": roi_pool.roi_pool,
             "conv3x3_fwd": conv3x3.conv3x3,
             "conv3x3_roll_fwd": conv3x3.conv3x3_roll,
             "bn_act": bn_act.bn_act,
-            "window_attn": window_attn.window_attention}
+            "window_attn": window_attn.window_attention,
+            "layernorm": layernorm.layernorm}
 
 
 def counts() -> Dict[str, int]:
